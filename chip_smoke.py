@@ -18,22 +18,46 @@ exit code is not 0:
   5. agreement of the card's fp32 output with the same model in float64
      on the CPU through the plain path;
   6. times from CUDA events: kernel against plain, and the forward,
-     eager and replayed from one CUDA graph.
-The last two lines are the kernels' JSON record and the result line.
+     eager and replayed from one CUDA graph;
+  7. the two UConvBlock-half kernels (pyramid_fused, fuse_expand_fused)
+     against their plain versions at full width (T 2010, C_out 128, C 512,
+     depth 5), B 1 and 4: every output, pad rows included, fp32 with TF32
+     off and bf16;
+  8. the fused block path (pyramid_fused -> GA -> fuse_expand_fused),
+     with its launch counts set to 0 just before: one block against
+     UConvBlock.forward at B 1 and 4 (fp32), and 20 chained blocks against
+     20 module blocks at B 24 in bf16 and B 1 in fp32; each wrapper's
+     count must rise by exactly 1 per block;
+  9. times: each half-block kernel against its plain version (B 1 and 4,
+     fp32), and ms/block of the module, hybrid and fused blocks (B 1 fp32,
+     B 24 bf16), eager and replayed from a CUDA graph.
+The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
+at once in phase 2. The last two lines are the kernels' JSON record and
+the result line.
 """
 
 import copy
 import json
-import math
 import os
-import statistics
-import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from tdanet_tpu_torch.kernels import _build
+from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
+    dw_conv_glob_ln, dw_conv_glob_ln_chunked, dw_conv_glob_ln_reference)
+from tdanet_tpu_torch.kernels.uconv_block import (
+    fuse_expand_fused, fuse_expand_fused_reference, pyramid_fused,
+    pyramid_fused_reference, scale_lengths, to_raw)
+from tdanet_tpu_torch.models import BaseModel, TDANetBest
+from tdanet_tpu_torch.probes import hybrid, uconv_kernel
+from tdanet_tpu_torch.utils import separate, separate_batched
+from tdanet_tpu_torch.utils.timing import (
+    card_line, cuda_time, graph_time, snr_db)
 
 CFG = dict(out_channels=128, in_channels=512, num_blocks=16,
            upsampling_depth=5, enc_kernel_size=4, num_sources=2,
@@ -44,20 +68,13 @@ SCALES = (2010, 1005, 503, 252, 126)  # the finest-to-coarsest chain, 2 s
 VARIANTS = (  # (K, stride, bias): the four kinds of depthwise ConvNorm
     (5, 1, True), (5, 2, True), (5, 1, False), (1, 1, False))
 REQUEST_SECONDS = (1.0, 2.0, 2.7)
+SOURCES = ("dw_conv_glob_ln", "uconv_pyramid", "uconv_fuse_expand")
+UCONV = dict(T=2010, Cout=128, depth=5)  # C as above: the bench's block
+CHAIN = 20
 
 
 def phase(name):
     print(f"== {name}", flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def site_inputs(B, T, K, bias, gen):
@@ -69,50 +86,6 @@ def site_inputs(B, T, K, bias, gen):
     g = torch.randn(C, generator=gen).cuda()
     be = torch.randn(C, generator=gen).cuda()
     return x, w, b, g, be
-
-
-def snr_db(ref, est):
-    ref = ref.double()
-    err = est.double() - ref
-    return 10 * math.log10(ref.square().sum().item()
-                           / max(err.square().sum().item(), 1e-300))
-
-
-def cuda_time(fn, reps, runs=7, warmup=3):
-    """Median ms per call over ``runs`` runs of ``reps`` calls, the runs,
-    and the runs more than twice the median."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    med = statistics.median(times)
-    return med, times, [t for t in times if t > 2 * med]
-
-
-def graph_time(fn, reps=50, runs=7):
-    """Device ms per call, host cost excluded: ``reps`` calls captured in
-    one CUDA graph, whose replay cuda_time times."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    med, times, flagged = cuda_time(graph.replay, reps=1, runs=runs)
-    return med / reps, [t / reps for t in times], [t / reps for t in flagged]
 
 
 def dev_us(event):
@@ -131,6 +104,177 @@ def tone_mix(seconds, seed, sr=16000):
     return np.sum(srcs, axis=0).astype(np.float32)
 
 
+def half_inputs(B, dtype, gen, seed):
+    """A seeded full-width block on the card, its padded input, and the
+    plain pyramid's outputs (fp32) with the post-GA global feature: the
+    operands of both halves."""
+    T, Cout, depth = UCONV["T"], UCONV["Cout"], UCONV["depth"]
+    block = uconv_kernel.seeded_block(Cout, C, depth, seed).cuda()
+    x_raw = to_raw(torch.randn(B, Cout, T, generator=gen).cuda().to(dtype))
+    scales, pooled = pyramid_fused_reference(
+        x_raw.float(), block, depth=depth, raw=True, raw_in=True, T0=T)
+    Tg = scale_lengths(T, depth)[-1]
+    g = block.globalatt(pooled[:, :Tg].transpose(1, 2)).transpose(1, 2)
+    return block, x_raw, [s.to(dtype) for s in scales], g.to(dtype)
+
+
+def check_halves(gen):
+    """Both kernels against their plain versions on the same inputs, every
+    output with its pad rows: fp32 max |d| <= 2e-3 max |ref|, bf16 (plain
+    in fp32 on the same bf16 inputs) SNR >= 30 dB. Returns the largest
+    fp32 max |d| of each kernel."""
+    T, depth = UCONV["T"], UCONV["depth"]
+    Ts = scale_lengths(T, depth)
+    worst = {"pyramid_fused": 0.0, "fuse_expand_fused": 0.0}
+    with torch.inference_mode():
+        for B in (1, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                block, x_raw, scales, g = half_inputs(B, dtype, gen, seed=B)
+                got_s, got_g = pyramid_fused(x_raw, block, depth=depth,
+                                             raw=True, raw_in=True, T0=T)
+                ref_s, ref_g = pyramid_fused_reference(
+                    x_raw.float(), block, depth=depth, raw=True,
+                    raw_in=True, T0=T)
+                got = fuse_expand_fused(scales, g, x_raw, block, Ts=Ts)
+                ref = fuse_expand_fused_reference(
+                    [s.float() for s in scales], g.float(), x_raw.float(),
+                    block, Ts=Ts)
+                pairs = {"pyramid_fused": list(zip(got_s + [got_g],
+                                                   ref_s + [ref_g])),
+                         "fuse_expand_fused": [(got, ref)]}
+                for name, outs in pairs.items():
+                    for i, (a, b) in enumerate(outs):
+                        if a.shape != b.shape or a.dtype != dtype:
+                            raise AssertionError(f"{name} output {i}: "
+                                                 f"{a.shape} {a.dtype}")
+                        if dtype == torch.float32:
+                            err = (a - b).abs().max().item()
+                            lim = 2e-3 * b.abs().max().item()
+                            ok, what = err <= lim, \
+                                f"max|d|={err:.3e} (limit {lim:.3e})"
+                            worst[name] = max(worst[name], err)
+                        else:
+                            snr = snr_db(b, a)
+                            ok, what = snr >= 30.0, \
+                                f"SNR={snr:.1f} dB (limit 30)"
+                        print(f"{name} B={B} {str(dtype)[6:]} output {i} "
+                              f"{tuple(a.shape)}: {what}")
+                        if not ok:
+                            raise AssertionError(
+                                f"{name} disagrees with its plain version")
+    torch.cuda.synchronize()
+    return worst
+
+
+def count_blocks(fn, n):
+    """Run fn, which makes n fused blocks; each wrapper must have launched
+    exactly n times."""
+    before = (pyramid_fused.launches, fuse_expand_fused.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    got = (pyramid_fused.launches - before[0],
+           fuse_expand_fused.launches - before[1])
+    if got != (n, n):
+        raise AssertionError(f"{got} launches of (pyramid_fused, "
+                             f"fuse_expand_fused) for {n} blocks")
+    return out
+
+
+def drive_fused_path(gen):
+    """The fused block path against the module block; returns each
+    wrapper's launches in this phase."""
+    T, Cout, depth = UCONV["T"], UCONV["Cout"], UCONV["depth"]
+    pyramid_fused.launches = fuse_expand_fused.launches = 0
+    with torch.inference_mode():
+        for B in (1, 4):
+            block = uconv_kernel.seeded_block(Cout, C, depth, seed=10 + B)
+            block = block.cuda()
+            x = torch.randn(B, Cout, T, generator=gen).cuda()
+            got = count_blocks(lambda: uconv_kernel.fused_block(block, x), 1)
+            want = block(x)
+            snr = snr_db(want, got)
+            print(f"one fused block B={B} fp32 vs UConvBlock.forward: "
+                  f"SNR {snr:.2f} dB (limit 60), finite "
+                  f"{bool(torch.isfinite(got).all())}")
+            if not (snr >= 60.0 and torch.isfinite(got).all()):
+                raise AssertionError("fused block disagrees with the module")
+        for B, dtype in ((24, torch.bfloat16), (1, torch.float32)):
+            block = uconv_kernel.seeded_block(Cout, C, depth, seed=0).cuda()
+            x = torch.randn(B, Cout, T, generator=gen).cuda().to(dtype)
+            snr, err = count_blocks(
+                lambda: uconv_kernel.compare_chain(block, x, CHAIN), CHAIN)
+            print(f"{CHAIN} chained fused blocks B={B} {str(dtype)[6:]} vs "
+                  f"{CHAIN} module blocks: SNR {snr:.2f} dB (limit 40), max "
+                  f"abs {err:.4e}")
+            if not snr >= 40.0:
+                raise AssertionError("fused chain disagrees with the module")
+    torch.cuda.synchronize()
+    launches = {"pyramid_fused": pyramid_fused.launches,
+                "fuse_expand_fused": fuse_expand_fused.launches}
+    print(f"launches in this phase: {launches}")
+    return launches
+
+
+def time_halves(gen):
+    """Each kernel against its plain version (B 1 and 4, fp32), then the
+    blocks' ms; returns each kernel's B=1 (kernel ms, plain ms), device
+    time from CUDA-graph replay."""
+    T, depth = UCONV["T"], UCONV["depth"]
+    Ts = scale_lengths(T, depth)
+    result = {}
+    with torch.inference_mode():
+        for B in (1, 4):
+            block, x_raw, scales, g = half_inputs(B, torch.float32, gen,
+                                                  seed=B)
+            calls = {
+                "pyramid_fused": (
+                    lambda: pyramid_fused(x_raw, block, depth=depth, raw=True,
+                                          raw_in=True, T0=T),
+                    lambda: pyramid_fused_reference(
+                        x_raw, block, depth=depth, raw=True, raw_in=True,
+                        T0=T)),
+                "fuse_expand_fused": (
+                    lambda: fuse_expand_fused(scales, g, x_raw, block, Ts=Ts),
+                    lambda: fuse_expand_fused_reference(scales, g, x_raw,
+                                                        block, Ts=Ts))}
+            for name, (kern, plain) in calls.items():
+                kg, pg = graph_time(kern), graph_time(plain)
+                ke, pe = cuda_time(kern, reps=20), cuda_time(plain, reps=20)
+                flags = [f for t in (kg, pg, ke, pe) for f in t[2]]
+                print(f"{name} B={B} fp32, us per call, device (graph replay)"
+                      f" / eager: kernel {kg[0] * 1e3:.1f} / "
+                      f"{ke[0] * 1e3:.1f}, plain {pg[0] * 1e3:.1f} / "
+                      f"{pe[0] * 1e3:.1f}"
+                      + (f"; runs over 2x median: {flags}" if flags else ""))
+                if B == 1:
+                    result[name] = (kg[0], pg[0])
+        for B, dtype in ((1, torch.float32), (24, torch.bfloat16)):
+            block, x = uconv_kernel.setup(B, dtype)
+            rows = {**hybrid.time_blocks(block, x),
+                    **uconv_kernel.time_blocks(block, x)}
+            for name, (g_ms, e_ms) in rows.items():
+                print(f"{name} B={B} {str(dtype)[6:]}: {g_ms:.3f} ms/block "
+                      f"CUDA graph, {e_ms:.3f} ms/block eager")
+        from torch.profiler import ProfilerActivity, profile
+        x_raw = to_raw(x)
+        uconv_kernel.fused_block_raw(block, x_raw, T)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            uconv_kernel.fused_block_raw(block, x_raw, T)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(dev_us(e) for e in events) / 1e3
+        print(f"profiled fused block B=24 bf16: "
+              f"{sum(e.count for e in events)} device kernels, "
+              f"{dev_ms:.3f} ms device time")
+        for e in sorted(events, key=dev_us, reverse=True)[:10]:
+            print(f"  {dev_us(e) / 1e3:8.3f} ms {e.count:4d}x {e.key[:90]}")
+    torch.cuda.synchronize()
+    return result
+
+
 def main():
     phase("1 device")
     if not torch.cuda.is_available():
@@ -144,18 +288,19 @@ def main():
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.cuda.synchronize()
 
-    from tdanet_tpu_torch.kernels import _build
-    from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
-        dw_conv_glob_ln, dw_conv_glob_ln_chunked, dw_conv_glob_ln_reference)
-    from tdanet_tpu_torch.models import BaseModel, TDANetBest
-    from tdanet_tpu_torch.utils import separate, separate_batched
-
-    phase("2 build")
-    so, seconds, report = _build.build("dw_conv_glob_ln")
-    print(f"built {os.path.relpath(so)} in {seconds:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    phase("2 build (one nvcc per source, all at once)")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(_build.build, SOURCES))
+    print(f"built {len(SOURCES)} sources in "
+          f"{time.perf_counter() - t0:.2f} s wall")
+    for so, seconds, report in built:
+        print(f"  {os.path.relpath(so)}: nvcc {seconds:.2f} s")
+        for line in report.splitlines():
+            if "Compiling entry function" in line:  # the kernel's name
+                print("    ptxas:", line.split("'")[1][:100])
+            elif "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
     torch.cuda.synchronize()
 
     phase("3 kernel against plain (C=512, model layout)")
@@ -311,12 +456,31 @@ def main():
     torch.cuda.synchronize()
 
     ms, pms = timings[(1, 5, 1, True)]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "dw_conv_glob_ln", "route": "cuda",
         "source": "tdanet_tpu_torch/csrc/dw_conv_glob_ln.cu",
         "replaces": "tdanet_tpu/kernels/fused_pyramid.py:72",
         "launches": main_path_launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": pms}]}))
+        "ms": ms, "plain_ms": pms}]
+
+    gen = torch.Generator().manual_seed(5)
+    phase("7 UConvBlock halves against plain (full width, every output)")
+    half_err = check_halves(gen)
+    phase("8 fused block path (launch counts from 0)")
+    half_launches = drive_fused_path(gen)
+    phase(f"9 times (CUDA events, median of 7 runs; card: {card})")
+    half_times = time_halves(gen)
+    for name, replaces in (("pyramid_fused", 521), ("fuse_expand_fused", 455)):
+        src = "uconv_pyramid" if name == "pyramid_fused" else \
+            "uconv_fuse_expand"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tdanet_tpu_torch/csrc/{src}.cu",
+            "replaces": f"tdanet_tpu/kernels/uconv_block.py:{replaces}",
+            "launches": half_launches[name], "max_abs_err": half_err[name],
+            "ms": half_times[name][0], "plain_ms": half_times[name][1]})
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

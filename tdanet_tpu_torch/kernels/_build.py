@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for sm_90a into a shared
 library with a plain C interface, under ``build/tdanet_tpu_torch/`` at the
-root of the checkout. The file name carries a hash of the source, so an
-edited source is rebuilt and never meets a stale library.
+root of the checkout. The file name carries a hash of the source and the
+``csrc/*.cuh`` headers, so an edited source is rebuilt and never meets a
+stale library.
 """
 
 from __future__ import annotations
@@ -37,9 +38,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of the source and of every
+    header in ``csrc/`` it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, float, str]:

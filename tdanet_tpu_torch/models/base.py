@@ -92,6 +92,28 @@ def load_jax_params(module: nn.Module, flat: Dict[str, Any]) -> nn.Module:
     return module
 
 
+@torch.no_grad()
+def init_parameters_(module: nn.Module, generator: torch.Generator):
+    """Initialise every parameter of ``module`` from ``generator`` with the
+    distributions of the JAX package's init helpers: torch-default convs,
+    unit gains and zero shifts for the norms, 0.25 PReLU slopes, xavier
+    attention input projections. Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv1d):
+            ops.conv1d_init_(m, generator)
+        elif isinstance(m, nn.MultiheadAttention):
+            ops.mha_init_(m, generator)
+        elif isinstance(m, nn.PReLU):
+            m.weight.fill_(0.25)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, GlobLN):
+            m.gamma.fill_(1.0)
+            m.beta.zero_()
+    return module
+
+
 class BaseModel(nn.Module):
     """A separation model: ``forward(wav) -> estimates``."""
 
@@ -105,26 +127,10 @@ class BaseModel(nn.Module):
     def get_model_args(self) -> Dict[str, Any]:
         raise NotImplementedError
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        """Initialise every parameter from ``generator`` with the
-        distributions of the JAX package's init helpers: torch-default
-        convs, unit gains and zero shifts for the norms, 0.25 PReLU
-        slopes, xavier attention input projections."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv1d):
-                ops.conv1d_init_(m, generator)
-            elif isinstance(m, nn.MultiheadAttention):
-                ops.mha_init_(m, generator)
-            elif isinstance(m, nn.PReLU):
-                m.weight.fill_(0.25)
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, GlobLN):
-                m.gamma.fill_(1.0)
-                m.beta.zero_()
-        return self
+        """Initialise every parameter from ``generator`` (see
+        :func:`init_parameters_`)."""
+        return init_parameters_(self, generator)
 
     def serialize(self) -> Dict[str, Any]:
         """Portable export in the reference schema."""

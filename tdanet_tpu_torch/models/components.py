@@ -207,7 +207,11 @@ class UConvBlock(nn.Module):
         self.res_conv = nn.Conv1d(in_channels, out_channels, 1)
 
     def forward(self, x, per_utterance=False):
-        residual = x
+        return self.tail(x, *self.pyramid(x), per_utterance)
+
+    def pyramid(self, x):
+        """The block's first half: (the depth scales, their pooled sum at
+        the coarsest length)."""
         output = [self.spp_dw[0](self.proj_1x1(x))]
         for k in range(1, self.depth):
             output.append(self.spp_dw[k](output[-1]))
@@ -215,6 +219,10 @@ class UConvBlock(nn.Module):
         global_f = output[-1]
         for fea in output[:-1]:
             global_f = global_f + ops.adaptive_avg_pool1d(fea, coarsest)
+        return output, global_f
+
+    def tail(self, residual, output, global_f, per_utterance=False):
+        """The block's second half: GA, LA fusion, expansion, res_conv."""
         global_f = self.globalatt(global_f, per_utterance)
         x_fused = [la(output[i], global_f)
                    for i, la in enumerate(self.loc_glo_fus)]

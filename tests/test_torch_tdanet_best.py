@@ -1,7 +1,7 @@
 """The port's TDANetBest against the JAX package's, in float64, on the same
 perturbed weights: B=1 (attention collapse), B=2 (attention over the batch
-axis, the reference quirk), on- and off-lattice lengths, and an early-exit
-depth."""
+axis, the reference quirk), on- and off-lattice lengths, an early-exit
+depth, and pyramid depths 5 and 4."""
 import numpy as np
 import pytest
 import torch
@@ -66,6 +66,20 @@ def test_one_block_model_matches_jax_fp64():
     jmodel, flat = jax_tdanet_best(cfg, seed=4)
     tmodel = port_tdanet_best(cfg, flat, torch.float64)
     x = np.random.default_rng(6).standard_normal((2, 8000))
+    want = _jax_forward(jmodel, flat, x)
+    with torch.inference_mode():
+        got = tmodel(torch.from_numpy(x)).numpy()
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_depth4_model_matches_jax_fp64(B):
+    """upsampling_depth 4, the constructor's default: a shallower pyramid
+    moves the expansion's finer-scale pair and the fusion upsample."""
+    cfg = dict(CFG, upsampling_depth=4)
+    jmodel, flat = jax_tdanet_best(cfg, seed=8)
+    tmodel = port_tdanet_best(cfg, flat, torch.float64)
+    x = np.random.default_rng(9 + B).standard_normal((B, 8001))
     want = _jax_forward(jmodel, flat, x)
     with torch.inference_mode():
         got = tmodel(torch.from_numpy(x)).numpy()
