@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tdanet_tpu_torch.models.components import GlobLN
+from tdanet_tpu_torch.models.components import GlobLN, GroupNorm1
 from tdanet_tpu_torch.ops import basic as ops
 
 _MODEL_REGISTRY: Dict[str, type] = {}
@@ -105,7 +105,7 @@ def init_parameters_(module: nn.Module, generator: torch.Generator):
             ops.mha_init_(m, generator)
         elif isinstance(m, nn.PReLU):
             m.weight.fill_(0.25)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, GroupNorm1)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, GlobLN):

@@ -32,17 +32,35 @@ class GlobLN(nn.Module):
         return ops.glob_ln(x, self.gamma, self.beta)
 
 
-class ConvNorm(nn.Module):
-    """Conv1d ('same' padding) + GlobLN."""
+class GroupNorm1(nn.Module):
+    """nn.GroupNorm(1, C, eps=1e-8) parameters (weight, bias) and its plain
+    forward."""
 
-    def __init__(self, n_in, n_out, kernel, stride=1, groups=1, bias=True):
+    def __init__(self, channels):
         super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return ops.group_norm1(x, self.weight, self.bias)
+
+
+class ConvNorm(nn.Module):
+    """Conv1d ('same' padding) + a global norm: GlobLN (``norm="gln"``,
+    parameters gamma and beta) or GroupNorm(1, C) (``norm="gn"``, weight and
+    bias). Only the depthwise GlobLN form runs the fused kernel."""
+
+    def __init__(self, n_in, n_out, kernel, stride=1, groups=1, bias=True,
+                 norm="gln"):
+        super().__init__()
+        if norm not in ("gln", "gn"):
+            raise ValueError(norm)
         self.stride, self.kernel = stride, kernel
         self.padding = (kernel - 1) // 2
-        self.depthwise = groups == n_in == n_out
+        self.depthwise = groups == n_in == n_out and norm == "gln"
         self.conv = nn.Conv1d(n_in, n_out, kernel, stride=stride,
                               padding=self.padding, groups=groups, bias=bias)
-        self.norm = GlobLN(n_out)
+        self.norm = GlobLN(n_out) if norm == "gln" else GroupNorm1(n_out)
 
     def forward(self, x):
         conv, norm = self.conv, self.norm

@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn import init as nn_init
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -49,6 +50,15 @@ def xavier_init_(weight: torch.Tensor, in_channels: int, out_channels: int,
     overlap-add decoder use."""
     bound = math.sqrt(6.0 / ((in_channels + out_channels) * kernel))
     weight.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def trunc_normal_(weight: torch.Tensor, generator: torch.Generator,
+                  std: float = 0.02):
+    """A normal truncated at two standard deviations, times ``std`` (the
+    Swin linears, bias tables and position embeddings)."""
+    nn_init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    weight.mul_(std)
 
 
 @torch.no_grad()
@@ -117,10 +127,60 @@ def glob_ln(x, gamma, beta, *, eps=1e-8):
         + beta.to(x.dtype).reshape(shape)
 
 
+def group_norm1(x, weight, bias, *, eps=1e-8):
+    """nn.GroupNorm(1, C, eps) on (B, C, ...): :func:`glob_ln`'s one-pass
+    statistics in the accumulation dtype, with the affine named weight and
+    bias."""
+    return glob_ln(x, weight, bias, eps=eps)
+
+
 def layer_norm(x, weight, bias, *, eps=1e-5):
     """nn.LayerNorm over the last dim."""
     return F.layer_norm(x, x.shape[-1:], weight.to(x.dtype),
                         bias.to(x.dtype), eps)
+
+
+def gelu(x):
+    """The exact (erf) GELU."""
+    return F.gelu(x)
+
+
+# ---------------------------------------------------------------------------
+# Training-time noise. The draws come from an explicit generator (on any
+# device) and are moved to x's device: the same generator gives the same
+# mask on the CPU and on the card.
+# ---------------------------------------------------------------------------
+
+
+def _uniform(shape, like, generator: torch.Generator):
+    if generator is None:
+        raise ValueError("training-time dropout and drop-path need a "
+                         "torch.Generator")
+    return torch.rand(shape, generator=generator, dtype=acc_dtype(like.dtype),
+                      device=generator.device).to(like.device)
+
+
+def dropout(x, generator: torch.Generator, rate: float, training: bool):
+    """Zero each element with probability ``rate`` and scale the kept ones
+    by 1 / (1 - rate); the identity at rate 0 or when not training."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = _uniform(x.shape, x, generator) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def drop_path(x, generator: torch.Generator, drop_prob: float,
+              training: bool):
+    """Stochastic depth: drop whole samples (axis 0) with probability
+    ``drop_prob`` and scale the kept ones by 1 / (1 - drop_prob)."""
+    if drop_prob == 0.0 or not training:
+        return x
+    keep = 1.0 - drop_prob
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.floor(keep + _uniform(shape, x, generator)).to(x.dtype)
+    return x / keep * mask
 
 
 # ---------------------------------------------------------------------------

@@ -65,3 +65,25 @@ def graph_time(fn, reps=50, runs=7):
             fn()
     med, times, flagged = cuda_time(graph.replay, reps=1, runs=runs)
     return med / reps, [t / reps for t in times], [t / reps for t in flagged]
+
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,
+# dense rates): device memory bytes/s, fp32 FLOP/s outside the tensor
+# cores, bf16 FLOP/s on them.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+
+
+def nbytes(*tensors):
+    """Bytes of the tensors' elements (a view counts what it shows)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(n_bytes, flops=0.0, peak="fp32"):
+    """The least ms the card could take: the larger of the bytes (each
+    input read once, each output written once) over the memory rate and
+    the operations over the peak rate of their type. Returns (ms, "bytes"
+    or "operations")."""
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")

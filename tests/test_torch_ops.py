@@ -86,6 +86,49 @@ def test_glob_ln():
     _close(tops.glob_ln(_t(x), _t(g), _t(b)), want)
 
 
+def test_group_norm1():
+    r = _rng(12)
+    x = r.standard_normal((3, 8, 41)) * 3 + 1
+    w, b = r.standard_normal(8), r.standard_normal(8)
+    want = _jax(lambda x_, w_, b_: jops.group_norm1(
+        x_, {"weight": w_, "bias": b_}), x, w, b)
+    _close(tops.group_norm1(_t(x), _t(w), _t(b)), want)
+
+
+def test_gelu_is_the_exact_erf_form():
+    x = _rng(13).standard_normal((4, 33)) * 3
+    want = _jax(lambda x_: jax.nn.gelu(x_, approximate=False), x)
+    _close(tops.gelu(_t(x)), want)
+
+
+@pytest.mark.parametrize("n_in,n_out,K,groups,bias", [
+    (12, 20, 1, 1, False),    # MlpConv's fc1
+    (16, 16, 5, 16, True)])   # depthwise: stays off the fused GlobLN kernel
+def test_conv_norm_gn_matches_jax(n_in, n_out, K, groups, bias):
+    from tdanet_tpu.models.components import ConvNorm as J
+    from tdanet_tpu_torch.models.components import ConvNorm
+    r = _rng(14 + K)
+    p = {"conv": {"weight": r.standard_normal((n_out, n_in // groups, K))},
+         "norm": {"weight": r.standard_normal(n_out),
+                  "bias": r.standard_normal(n_out)}}
+    if bias:
+        p["conv"]["bias"] = r.standard_normal(n_out)
+    x = r.standard_normal((2, n_in, 23))
+    want = _jax(lambda x_: J(n_in, n_out, K, groups=groups, bias=bias,
+                             norm="gn").apply(
+        jax.tree_util.tree_map(jnp.asarray, p), x_), x)
+    m = ConvNorm(n_in, n_out, K, groups=groups, bias=bias,
+                 norm="gn").double()
+    assert not m.depthwise
+    assert set(m.state_dict()) == {f"{a}.{b}" for a in p for b in p[a]}
+    m.load_state_dict({f"{a}.{b}": _t(v) for a in p
+                       for b, v in p[a].items()})
+    with torch.no_grad():
+        _close(m(_t(x)), want)
+    with pytest.raises(ValueError):
+        ConvNorm(4, 4, 1, norm="bn")
+
+
 def test_layer_norm():
     r = _rng(3)
     x = r.standard_normal((2, 9, 16)) * 2 + 0.5
