@@ -45,7 +45,8 @@ exit code is not 0:
      against the same model in float64 on the CPU; one SwinTransformer
      classifier forward (12 launches each);
   12. every micro-kernel of the two op probes against its plain version at
-     (24, 2032, 512) bf16;
+     (24, 2032, 512) bf16, the products' SNR printed, and the count of
+     wgmma (HGMMA) instructions in the built library, which must not be 0;
   13. times: the window kernels against plain, the Swin forward and
      forward + backward, and, with their launch counts set to 0 just
      before, the two probes through their entry points.
@@ -57,6 +58,8 @@ the result line.
 import copy
 import json
 import os
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -545,6 +548,24 @@ def time_windows_and_swin(gen, model, x):
     return result
 
 
+def count_hgmma():
+    """The wgmma (SASS: HGMMA) instructions in the built micro_ops library,
+    where the toolkit's ``cuobjdump`` is there to list them: the bf16
+    products must have reached the warpgroup instruction."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("no cuobjdump on this machine: HGMMA not counted")
+        return
+    so = _build.library_path("micro_ops")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"HGMMA instructions in {os.path.relpath(so)}: {n}")
+    if n == 0:
+        raise AssertionError("the bf16 products did not reach wgmma")
+
+
 def drive_probes():
     """The two op probes through their entry points, with every
     micro-kernel's launch count set to 0 just before; returns their
@@ -819,6 +840,7 @@ def main():
             for v in probe.variants(*operands):
                 mosaic_ops.check(v)
         del operands
+    count_hgmma()
     torch.cuda.synchronize()
     phase(f"13 times (CUDA events, median of 7 runs; card: {card})")
     window_times = time_windows_and_swin(gen, swin, swin_x)

@@ -140,7 +140,9 @@ def check(v: Variant):
         ok, what = torch.equal(a, b), "equal"
     else:
         snr = snr_db(b, a)
-        ok, what = snr >= 40.0, f"SNR {snr:.1f} dB (limit 40)"
+        ok = snr >= 40.0
+        what = (f"SNR {snr:.1f} dB (limit 40), "
+                f"{'equal' if torch.equal(a, b) else 'not equal'} bit for bit")
     print(f"{v.name}: {what}, max|d| {err:.3e}, zeros outside rows "
           f"[{v.rows.start}, {v.rows.stop})", flush=True)
     if not ok:

@@ -224,6 +224,39 @@ def test_rejections():
         mo.stats_normalize(x, chunk=128)
     with pytest.raises(ValueError, match="do not fit"):
         mo.repeat2(x, 301)
+    # what the TMA-fed products cannot take: a base or a stride that is not
+    # a multiple of 16 bytes, an R that is not a multiple of 8, a weight too
+    # wide for one SM's shared memory
+    wp = torch.zeros(mo.PROJ_K, C, dtype=torch.bfloat16)
+    wide = torch.zeros(B, R, 200, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        mo.proj(wide[:, :, 4:196], wp)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        mo.copy(torch.zeros(B * R * C + 4, dtype=torch.bfloat16)[4:]
+                .view(B, R, C))
+    with pytest.raises(ValueError, match="strides"):
+        mo.proj(torch.zeros(B, R, 196, dtype=torch.bfloat16)[:, :, :192], wp)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mo.decimate(x[:, :R - 4], torch.zeros(RD, R - 4))
+    with pytest.raises(ValueError, match="w must be"):
+        mo.proj(x, torch.zeros(mo.PROJ_K, mo.PROJ_MAX_C + 64,
+                               dtype=torch.bfloat16))
+    # a view with any channel stride is copied first, then taken
+    assert mo.proj(torch.zeros(B, 192, R, dtype=torch.bfloat16)
+                   .transpose(1, 2), wp).shape == (B, R, C)
+
+
+@pytest.mark.parametrize("width,first", [(128, 0), (136, 8), (192, 64)])
+def test_proj_takes_aligned_views(width, first):
+    """What the in-place read allows: a channel window of a wider tensor
+    whose offset and strides are multiples of 8 elements (16 bytes)."""
+    rng = np.random.default_rng(6)
+    wide = _bf16(rng.standard_normal((B, R, width)).astype(np.float32))
+    wp = _bf16(_operands(6)[3])
+    view = wide[:, :, first:]
+    got = mo.proj(view, wp, chunk=128)
+    want = mo.proj_reference(view.contiguous(), wp, chunk=128)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("probe,index", [
@@ -266,3 +299,21 @@ def test_cuda_kernels_match_plain_versions():
                 n += 1
     assert n == 16
     assert sum(w.launches for w in mo.WRAPPERS) - before == n
+    # the products at a small odd shape: M, K and R no multiples of a tile
+    # (128 x 256 x 64), a strided a, a width below one column tile
+    gen = torch.Generator().manual_seed(1)
+    for Bs, Rs, Cs, Ms in ((2, 600, 320, 296), (3, 264, 64, 130)):
+        x = torch.randn(Bs, Rs, Cs, generator=gen).bfloat16().cuda()
+        dec = torch.randn(Ms, Rs, generator=gen).cuda()
+        wp = torch.randn(mo.PROJ_K, Cs, generator=gen).bfloat16().cuda()
+        a = torch.randn(Bs, Rs, 192, generator=gen).bfloat16().cuda()
+        pairs = [(mo.decimate(x, d), mo.decimate_reference(x, d), Ms)
+                 for d in (dec, dec.bfloat16())]
+        pairs += [(mo.proj(a, wp, chunk=ch),
+                   mo.proj_reference(a, wp, chunk=ch),
+                   Rs if ch == 0 else Rs // ch * ch) for ch in (0, 512, 128)]
+        torch.cuda.synchronize()
+        for got, want, rows in pairs:
+            assert not got[:, rows:].count_nonzero().item()
+            if rows:
+                assert mosaic_ops.snr_db(want[:, :rows], got[:, :rows]) >= 40
