@@ -6,9 +6,14 @@ Phases, each ending in torch.cuda.synchronize(); any failure raises and the
 exit code is not 0:
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off for convolutions and matrix products;
-  2. build the CUDA kernels from tdanet_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version at every main-path site
-     shape, fp32 and bf16;
+  2. build the CUDA kernels from tdanet_tpu_torch/csrc; print the
+     registers of every kernel, and the occupancy figure and the grid of
+     dw_conv_glob_ln's cooperative launch at each site shape;
+  3. dw_conv_glob_ln against its plain PyTorch version at every main-path
+     site shape, B 1 and 4, in the model's (B, C, T) layout and in
+     (B, T, C): fp32, bf16 with bf16 and with fp32 parameters; a second
+     run equal bit for bit, and a CUDA-graph replay equal to the eager
+     call; the chunked entry;
   4. serve: a full-width TDANetBest (out 128, in 512, 16 blocks, depth 5,
      4 ms encoder, 2 sources, 16 kHz) with seeded random weights is saved
      in the reference checkpoint schema, loaded with from_pretrain, moved
@@ -17,8 +22,11 @@ exit code is not 0:
      32 x 16 per forward;
   5. agreement of the card's fp32 output with the same model in float64
      on the CPU through the plain path;
-  6. times from CUDA events: kernel against plain, and the forward,
-     eager and replayed from one CUDA graph;
+  6. times from CUDA events: dw_conv_glob_ln against plain at every site
+     shape (B 1 fp32), at the finest K5 stride-1 site B 4 fp32 and B 24
+     bf16, summed over one forward's 512 sites beside their bound; the
+     forward, eager and replayed from one CUDA graph, and profiled: 512
+     device kernels of dw_conv_glob_ln, and their device time;
   7. the two UConvBlock-half kernels (pyramid_fused, fuse_expand_fused)
      against their plain versions at full width (T 2010, C_out 128, C 512,
      depth 5), B 1 and 4: every output, pad rows included, fp32 with TF32
@@ -79,8 +87,10 @@ from tdanet_tpu_torch.kernels.window_process import (
     window_merge_and_roll, window_merge_and_roll_reference)
 from tdanet_tpu_torch.models import (
     BaseModel, SwinTransformer, SwinTransformerSys, TDANetBest)
+from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
-    hybrid, mosaic_ops, mosaic_ops2, uconv_kernel)
+    dw_sites, hybrid, mosaic_ops, mosaic_ops2, uconv_kernel)
+from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.utils import separate, separate_batched
 from tdanet_tpu_torch.utils.timing import (
     bound_ms, card_line, cuda_time, graph_time, nbytes, snr_db)
@@ -90,9 +100,6 @@ CFG = dict(out_channels=128, in_channels=512, num_blocks=16,
            sample_rate=16000)
 SITES_PER_BLOCK = 32  # 5 pyramid stages + 5 LA x 3 + 4 LA x 3
 C = 512
-SCALES = (2010, 1005, 503, 252, 126)  # the finest-to-coarsest chain, 2 s
-VARIANTS = (  # (K, stride, bias): the four kinds of depthwise ConvNorm
-    (5, 1, True), (5, 2, True), (5, 1, False), (1, 1, False))
 REQUEST_SECONDS = (1.0, 2.0, 2.7)
 SOURCES = ("dw_conv_glob_ln", "uconv_pyramid", "uconv_fuse_expand",
            "window_process", "micro_ops")
@@ -112,15 +119,57 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def site_inputs(B, T, K, bias, gen):
-    """Main-path operands: the model's (B, C, T) activation seen as
-    (B, T, C), and its depthwise ConvNorm parameters."""
-    x = torch.randn(B, C, T, generator=gen).cuda().transpose(1, 2)
-    w = (torch.randn(C, 1, K, generator=gen) * 0.2).cuda()
-    b = (torch.randn(C, generator=gen) * 0.1).cuda() if bias else None
-    g = torch.randn(C, generator=gen).cuda()
-    be = torch.randn(C, generator=gen).cuda()
-    return x, w, b, g, be
+def check_site(x, params, stride, K):
+    """dw_conv_glob_ln against its plain version on one site's operands:
+    fp32 max |d| <= 1e-4 max |ref|; bf16 x with bf16 and with fp32
+    parameters (plain in fp32 on the same values) SNR >= 40 dB; a second
+    run equal bit for bit; x's layout kept. Returns (fp32 max |d|, its
+    limit, the two SNRs)."""
+    kw = dict(stride=stride, K=K)
+    got = dw_conv_glob_ln(x, *params, **kw)
+    again = dw_conv_glob_ln(x, *params, **kw)
+    ref = dw_conv_glob_ln_reference(x, *params, **kw)
+    err = (got - ref).abs().max().item()
+    lim = 1e-4 * ref.abs().max().item()
+    x16 = x.bfloat16()
+    snrs, same = [], torch.equal(got, again)
+    for ps in ([None if p is None else p.bfloat16() for p in params],
+               params):
+        got16 = dw_conv_glob_ln(x16, *ps, **kw)
+        same = same and torch.equal(got16, dw_conv_glob_ln(x16, *ps, **kw))
+        ref16 = dw_conv_glob_ln_reference(
+            x16.float(), *[None if p is None else p.float() for p in ps],
+            **kw)
+        snrs.append(snr_db(ref16, got16))
+    inner = 1 if x.stride(1) == 1 else 2
+    if got.stride(inner) != 1 or got16.stride(inner) != 1:
+        raise AssertionError(f"output layout {got.stride()} for x "
+                             f"{x.stride()}")
+    if not (err <= lim and min(snrs) >= 40.0):
+        raise AssertionError(f"kernel disagrees with plain: {err} {snrs}")
+    if not same:
+        raise AssertionError("a second run differs from the first")
+    return err, lim, snrs
+
+
+def graph_equals_eager(x, params, stride, K):
+    """One call captured in a CUDA graph: its replay must give the eager
+    output bit for bit."""
+    call = (lambda: dw_conv_glob_ln(x, *params, stride=stride, K=K))
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, eager):
+        raise AssertionError(f"graph replay differs from eager at "
+                             f"{tuple(x.shape)} K={K} s={stride}")
 
 
 def dev_us(event):
@@ -626,38 +675,49 @@ def main():
           f"{time.perf_counter() - t0:.2f} s wall")
     for so, seconds, report in built:
         print(f"  {os.path.relpath(so)}: nvcc {seconds:.2f} s")
-        for line in report.splitlines():
-            if "Compiling entry function" in line:  # the kernel's name
-                print("    ptxas:", line.split("'")[1][:100])
-            elif "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip())
+        entry = spill = ""
+        for line in report.splitlines():  # one line per kernel
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1][:90]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line and entry:
+                print(f"    ptxas: {entry}: {line.split(':', 1)[1].strip()}"
+                      f"; {spill}")
+                entry = ""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for K, stride, bias in VARIANTS:  # fp32, the model's (B, C, T) layout
+        cap = dw.capacity(0, 0, K, stride, True, 0)
+        grids = [dw.plan(1, (T - 1) // stride + 1, C, cap).grid
+                 for T in SCALES]
+        print(f"dw_conv_glob_ln K={K} s={stride} fp32: occupancy "
+              f"{cap // sms} CTAs an SM x {sms} SMs = {cap} co-resident CTAs;"
+              f" grid at B=1 T={SCALES}: {grids}, at B=24 T=2010: "
+              f"{dw.plan(24, (2010 - 1) // stride + 1, C, cap).grid}")
     torch.cuda.synchronize()
 
-    phase("3 kernel against plain (C=512, model layout)")
+    phase("3 dw_conv_glob_ln against plain (C=512, both layouts)")
     gen = torch.Generator().manual_seed(0)
-    max_err = 0.0
+    max_err, graphs = 0.0, 0
     with torch.inference_mode():
         for B in (1, 4):
             for T in SCALES:
                 for K, stride, bias in VARIANTS:
-                    x, w, b, g, be = site_inputs(B, T, K, bias, gen)
-                    got = dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K)
-                    ref = dw_conv_glob_ln_reference(x, w, b, g, be,
-                                                    stride=stride, K=K)
-                    err = (got - ref).abs().max().item()
-                    lim = 1e-4 * ref.abs().max().item()
-                    x16 = x.bfloat16()
-                    got16 = dw_conv_glob_ln(x16, w, b, g, be, stride=stride,
-                                            K=K)
-                    ref16 = dw_conv_glob_ln_reference(
-                        x16.float(), w, b, g, be, stride=stride, K=K)
-                    snr16 = snr_db(ref16, got16)
-                    print(f"B={B} T={T:4d} K={K} s={stride} bias={bias!s:5}"
-                          f" fp32 max|d|={err:.3e} (limit {lim:.3e})"
-                          f" bf16 SNR={snr16:.1f} dB")
-                    if not (err <= lim and snr16 >= 40.0):
-                        raise AssertionError("kernel disagrees with plain")
-                    max_err = max(max_err, err)
+                    for layout in ("(B,C,T)", "(B,T,C)"):
+                        x, *params = site_inputs(B, T, K, bias, gen)
+                        if layout == "(B,T,C)":
+                            x = x.contiguous()
+                        err, lim, snrs = check_site(x, params, stride, K)
+                        print(f"B={B} T={T:4d} K={K} s={stride} "
+                              f"bias={bias!s:5} {layout} fp32 max|d|="
+                              f"{err:.3e} (limit {lim:.3e}), bf16 SNR "
+                              f"{snrs[0]:.1f} dB (bf16 parameters), "
+                              f"{snrs[1]:.1f} dB (fp32); rerun equal")
+                        max_err = max(max_err, err)
+                        if T == SCALES[0] or T == SCALES[-1]:
+                            graph_equals_eager(x, params, stride, K)
+                            graphs += 1
+        print(f"{graphs} CUDA-graph replays equal to the eager call")
         chunked_err = 0.0
         for B in (1, 4):  # the chunked entry, channels-last (B, T, C)
             x, w, b, g, be = site_inputs(B, 2010, 5, True, gen)
@@ -723,30 +783,13 @@ def main():
     torch.cuda.synchronize()
 
     phase(f"6 times (CUDA events, median of 7 runs; card: {card})")
-    timings = {}
+    rows = dw_sites.time_sites(gen)
+    site_us, site_bound_us, site_bytes, n_sites = dw_sites.forward_sums(rows)
+    print(f"one forward's {n_sites} dw_conv_glob_ln sites, summed from the "
+          f"B=1 rows: kernel {site_us:.1f} us, bound {site_bound_us:.1f} us "
+          f"({site_bytes / 1e6:.1f} MB moved at least), "
+          f"{100 * site_bound_us / site_us:.0f}% of the bound")
     with torch.inference_mode():
-        for B in (1, 4):
-            for K, stride, bias in VARIANTS:
-                x, w, b, g, be = site_inputs(B, 2010, K, bias, gen)
-                args = (x, w, b, g, be)
-                kw = dict(stride=stride, K=K)
-                row = {}
-                for name, fn in (("kernel", dw_conv_glob_ln),
-                                 ("plain", dw_conv_glob_ln_reference)):
-                    call = (lambda fn=fn: fn(*args, **kw))
-                    row[name] = (graph_time(call),
-                                 cuda_time(call, reps=50))
-                timings[(B, K, stride, bias)] = (row["kernel"][0][0],
-                                                 row["plain"][0][0])
-                flags = [f for r in row.values() for t in r for f in t[2]]
-                print(f"dw_conv_glob_ln B={B} T=2010 C={C} K={K} s={stride} "
-                      f"bias={bias!s:5} fp32, us per call, device (graph "
-                      f"replay) / eager: kernel "
-                      f"{row['kernel'][0][0] * 1e3:.1f} / "
-                      f"{row['kernel'][1][0] * 1e3:.1f}, plain "
-                      f"{row['plain'][0][0] * 1e3:.1f} / "
-                      f"{row['plain'][1][0] * 1e3:.1f}"
-                      + (f"; runs over 2x median: {flags}" if flags else ""))
         # 32000 samples: the finest scale is the (1, 512, 2010) timed above
         wav = torch.from_numpy(tone_mix(2.0, seed=9)).cuda()[None]
         fms, fruns, fflag = cuda_time(lambda: model(wav), reps=1, runs=9,
@@ -762,34 +805,22 @@ def main():
               f"{gms:.2f} ms (runs {[round(t, 2) for t in gruns]}), "
               f"{2.0 / (gms / 1e3):.1f}x realtime"
               + (f"; runs over 2x median: {gflag}" if gflag else ""))
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(wav)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None)
-                  == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(dev_us(e) for e in events) / 1e3
-        n_kernels = sum(e.count for e in events)
-        if dev_ms > 0:
-            print(f"profiled forward: {n_kernels} device kernels, "
-                  f"{dev_ms:.2f} ms device time in {wall:.2f} ms wall "
-                  f"(device busy {100 * dev_ms / wall:.0f}%, profiler on)")
-            for e in sorted(events, key=dev_us, reverse=True)[:8]:
-                print(f"  {dev_us(e) / 1e3:8.2f} ms "
-                      f"{e.count:5d}x {e.key[:90]}")
-        else:
-            print("profiled forward: device time not measured "
-                  "(the profiler recorded no CUDA kernels)")
+    prof = dw_sites.profile_forward(model, wav)
+    if prof["device_ms"] > 0:
+        dw_sites.print_profile(prof)
+        print(f"device busy {100 * prof['device_ms'] / prof['wall_ms']:.0f}%"
+              f" of the profiled forward's wall time")
+        if prof["dw_kernels"] != per_forward:
+            raise AssertionError(f"{prof['dw_kernels']} dw_conv_glob_ln "
+                                 f"device kernels in one forward, expected "
+                                 f"{per_forward}")
+    else:
+        print("profiled forward: device time not measured "
+              "(the profiler recorded no CUDA kernels)")
     torch.cuda.synchronize()
 
-    ms, pms = timings[(1, 5, 1, True)]
-    x, w, b, g, be = site_inputs(1, 2010, 5, True, gen)
-    bms, by = bound_ms(2 * nbytes(x) + nbytes(w, b, g, be),
-                       (2.0 * 5 + 6) * x.numel())
+    row = next(r for r in rows if (r["B"], r["T"], r["K"], r["stride"],
+                                   r["bias"]) == (1, 2010, 5, 1, True))
     # no single PyTorch call computes any of kernels #1-#6 (conv + norm,
     # roll + permuting copy are two calls each, the plain versions). One
     # entry for the one kernel behind both depthwise wrappers: the served
@@ -803,8 +834,11 @@ def main():
         "also_replaces": "tdanet_tpu/kernels/fused_pyramid_chunked.py:106",
         "launches": main_path_launches, "max_abs_err": max_err,
         "chunked_max_abs_err": chunked_err,
-        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None}]
+        "ms": row["us"] / 1e3, "plain_ms": row["plain_us"] / 1e3,
+        "bound_ms": row["bound_us"] / 1e3, "bound_by": row["bound_by"],
+        "library_ms": None, "forward_ms": site_us / 1e3,
+        "forward_bound_ms": site_bound_us / 1e3,
+        "forward_profiled_ms": prof["dw_ms"]}]
 
     gen = torch.Generator().manual_seed(5)
     phase("7 UConvBlock halves against plain (full width, every output)")

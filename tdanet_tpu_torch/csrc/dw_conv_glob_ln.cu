@@ -7,273 +7,488 @@
 // Both compute this function; the TPU versions hold a sample's (T, C)
 // scale in VMEM (whole, or streamed in 512-row chunks by one core).
 //
-// What bounds it on the H100: bytes. Per output element it does K
-// multiply-adds and about ten more flops for the statistics and the
-// affine, against 16 bytes moved in fp32 (read x, write raw y, read raw y,
-// write out), about 2 operations per byte, far below the card's ~20
-// fp32 flops per byte of HBM bandwidth. A sample's finest scale,
-// (2010, 512) fp32, is 4.1 MB, 18 times what one SM's shared memory holds,
-// so one CTA cannot own a sample as one TPU core did.
+// What bounds it on the H100: bytes, and at most sites the launch. Per
+// output element it does K multiply-adds and about six more operations
+// for the statistics and the affine, far below the card's ~20 fp32 flops
+// per byte of HBM bandwidth; the least it can move is one read of x and
+// one write of out. A served forward runs it at 512 sites, most of them
+// at most 1005 rows (0.5-2 MB), where one launch and the pass boundary
+// cost more than the bytes.
 //
-// What the design does about it: two passes over a grid of
-// (time tile, channel tile, sample) CTAs, with no atomics, so the result
-// is deterministic.
-//   Pass A: a CTA stages its input rows plus the K-1 halo in shared memory
-//     (zero outside [0, T)), computes the strided conv in fp32, adds the
-//     bias, writes raw y to an fp32 scratch, and writes its tile's
-//     statistics (count, mean, M2) to a per-sample partials buffer.
-//   Pass B: every CTA merges its sample's partials in one fixed order
-//     (Chan's pairwise update), then normalises its tile of raw y and
-//     applies the per-channel affine.
-// (count, mean, M2) instead of (sum, sumsq): a tile's M2 is taken about
-// its own mean and the merge never subtracts two large squares, so the
-// variance stays exact when the activations share a large offset; it
-// costs nothing in bytes. Raw y is stored rather than recomputed in pass
-// B, which keeps pass B a pure elementwise pass over what pass A's
-// statistics saw. Each CTA reads and writes along whichever of T or C is
-// the innermost contiguous axis, so the model's (B, C, T) tensors pass as
-// a transposed view without a copy.
+// What the design does about it: one cooperative launch per site, and
+// no scratch beyond the statistics.
+//   The grid is at most the CTAs the card holds at once (the occupancy
+//   figure times the SMs) and at most the tiles. The (sample, channel
+//   tile, time tile) tiles of 128 rows x 32 channels are numbered sample
+//   by sample, and CTA j owns the contiguous run [j N / G, (j+1) N / G).
+//   Phase 1: a CTA of 512 threads stages each tile's input rows plus the
+//     K-1 halo in shared memory (clamped and masked at the edges),
+//     computes the conv in fp32 and the tile's (count, mean, M2) in one
+//     reduction, about the tile's first value, and folds the tiles of a
+//     sample, in tile order, into one part per (sample, CTA): a float4 in
+//     a (B, G, 4) buffer. No conv output is stored: the first and the
+//     last tile's values stay in registers.
+//   One grid barrier (cooperative_groups::this_grid().sync()).
+//   Phase 2: per sample, a CTA merges the parts of the CTAs that own the
+//     sample's tiles, in CTA order (one a thread, a shuffle tree in each
+//     warp, then one over the warps), with Chan's update; then it
+//     normalises the kept tiles and recomputes the conv of the others
+//     from x (still in the L2 at the served sizes), applies the affine
+//     and stores out in x's type.
+// The merge order is fixed by tile and CTA index, never by arrival, and
+// the barrier's own counter is the only atomic: for one card and shape
+// the output is the same bit for bit from run to run. (count, mean, M2)
+// rather than (sum, sum of squares), with each mean held as hi + lo (a
+// value of the data and the rest): no precision goes to a large common
+// offset of the activations. The tap count and the stride are template
+// constants, so every tap's load is issued before the arithmetic; a
+// stride-2 tile is staged in two phases (even rows, then odd) so
+// neighbouring threads read neighbouring words. Rows of the model's
+// (B, C, T) views are not 16-byte aligned at its lengths (2010, 1005,
+// 503, ...), so loads are scalar, a warp covering 64-128 contiguous
+// bytes: full sectors, and far fewer instructions than the L2 rate could
+// absorb. Parameters are read in their own storage type. One CTA of 512
+// threads an SM: up to 128 registers a thread, no spills (at 64, the
+// staging arrays spilled).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kTileT = 64;
+constexpr int kTileT = 128;
 constexpr int kTileC = 32;
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = kTileT * kTileC / kThreads;  // 8
-constexpr int kMaxK = 7;
-constexpr int kMaxStride = 2;
-// rows of input a tile needs at most; odd, so walking channels in shared
-// memory touches 32 distinct banks
-constexpr int kRows = (kTileT - 1) * kMaxStride + kMaxK;  // 133
+constexpr int kMinBlocks = 1;
 
 struct Geometry {
-  int B, T, C, T_out, K, stride, pad;
-  int n_tiles_c;
-  long long xb, xt, xc;  // element strides of x
-  long long ob, ot, oc;  // element strides of out and of raw y
-  int t_contig;          // 1: T is the innermost axis, 0: C is
+  int B, T, C, T_out;
+  int tiles_t, tiles_c, per_sample;  // tiles per sample along T_out, C
+  int n_tiles;                       // B * per_sample; n_tiles * G < 2^31
+  long long xb, ob;                  // sample strides of x and out
+  int xt, xc, ot, oc;                // element strides within a sample
+  float eps;
 };
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// A sample's statistics, or a part of them: count, mean = hi + lo (hi a
+// value of the data, the first tile's first conv value; lo the rest),
+// and M2, the sum of squared deviations from the mean.
+struct Stats {
+  float n, hi, lo, m2;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Element e of a tile -> (time, channel) within it. Neighbouring threads
-// take neighbouring addresses along the contiguous axis.
-__device__ __forceinline__ void tile_coords(int e, int t_contig, int& tl,
-                                            int& cl) {
-  if (t_contig) {
-    tl = e % kTileT;
-    cl = e / kTileT;
-  } else {
-    cl = e % kTileC;
-    tl = e / kTileC;
-  }
-}
-
-// Sum over the CTA in a fixed order; every thread gets the result.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int i = 0; i < kThreads / 32; ++i) t += red[i];
-  return t;
-}
-
-// Chan's pairwise merge of (count, mean, M2) b into a.
-__device__ __forceinline__ void merge(float& na, float& ma, float& m2a,
-                                      float nb, float mb, float m2b) {
-  if (nb == 0.f) return;
-  if (na == 0.f) {
-    na = nb;
-    ma = mb;
-    m2a = m2b;
+// Chan's pairwise merge of b into a. The difference of the means is
+// (b.hi - a.hi) + (b.lo - a.lo): near a common offset the first term is
+// exact, so no precision goes to the offset. a keeps its hi.
+__device__ __forceinline__ void merge(Stats& a, const Stats& b) {
+  if (b.n == 0.f) return;
+  if (a.n == 0.f) {
+    a = b;
     return;
   }
-  const float n = na + nb;
-  const float d = mb - ma;
-  ma += d * (nb / n);
-  m2a += m2b + d * d * (na / n) * nb;
-  na = n;
+  const float n = a.n + b.n, r = 1.f / n;
+  const float d = (b.hi - a.hi) + (b.lo - a.lo);
+  a.lo += d * (b.n * r);
+  a.m2 += b.m2 + d * d * (a.n * r) * b.n;
+  a.n = n;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv_stats_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ bias, float* __restrict__ y,
-                  float* __restrict__ partials, Geometry g) {
-  __shared__ float tile[kTileC][kRows];
-  __shared__ float red[kThreads / 32];
-  const int tt = blockIdx.x, ct = blockIdx.y, b = blockIdx.z;
-  const int t0 = tt * kTileT, c0 = ct * kTileC;
-  const int rows = (kTileT - 1) * g.stride + g.K;
-  const int in0 = t0 * g.stride - g.pad;
-  const T* xs = x + b * g.xb;
+__device__ __forceinline__ Stats shfl_down(const Stats& s, int o) {
+  return {__shfl_down_sync(0xffffffffu, s.n, o),
+          __shfl_down_sync(0xffffffffu, s.hi, o),
+          __shfl_down_sync(0xffffffffu, s.lo, o),
+          __shfl_down_sync(0xffffffffu, s.m2, o)};
+}
 
-  for (int i = threadIdx.x; i < rows * kTileC; i += kThreads) {
-    int r, cl;
-    if (g.t_contig) {
-      r = i % rows;
-      cl = i / rows;
+// Merge every thread's s over the CTA in a fixed order (a shuffle-down
+// tree in each warp, then one over the warps in warp 0); every thread
+// gets the result. red: kWarps + 1 Stats of shared memory.
+__device__ Stats block_merge(Stats s, Stats* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) merge(s, shfl_down(s, o));
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) red[wid] = s;
+  __syncthreads();
+  if (wid == 0) {
+    s = lane < kWarps ? red[lane] : Stats{0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int o = kWarps / 2; o > 0; o >>= 1) merge(s, shfl_down(s, o));
+    if (lane == 0) red[kWarps] = s;
+  }
+  __syncthreads();
+  return red[kWarps];
+}
+
+// Two sums over the CTA in a fixed order (an xor butterfly in each warp,
+// the warps in order); every thread gets them. red: 2 * kWarps floats.
+__device__ __forceinline__ void block_sum2(float& u, float& v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    u += __shfl_xor_sync(0xffffffffu, u, o);
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  }
+  __syncthreads();  // red may still be read by the previous call
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5] = u;
+    red[kWarps + (threadIdx.x >> 5)] = v;
+  }
+  __syncthreads();
+  u = red[0];
+  v = red[kWarps];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    u += red[w];
+    v += red[kWarps + w];
+  }
+}
+
+// The CTA that owns tile i: the largest j with j N / G <= i.
+__device__ __forceinline__ int owner(int i, int N, int G) {
+  return ((i + 1) * G - 1) / N;
+}
+
+template <typename TX, typename TP, int K, int S, bool TC>
+struct Tile {
+  static constexpr int kRows = (kTileT - 1) * S + K;  // input rows a tile
+  static constexpr int kHalf = (kRows + 1) / 2;
+  static constexpr int kRowLen = S == 2 ? 2 * kHalf : kRows;
+  static constexpr int kElems = kRows * kTileC;
+  static constexpr int kIter = (kElems + kThreads - 1) / kThreads;
+  // T-contiguous: [channel][row], a stride-2 row split into its even and
+  // odd phases; C-contiguous: [row][channel]
+  static constexpr int kSmem = TC ? kTileC * kRowLen : kRows * kTileC;
+
+  // staged element e -> (row, channel): neighbouring threads take
+  // neighbouring addresses of the contiguous axis
+  __device__ static __forceinline__ int row_of(int e) {
+    return TC ? e % kRows : e / kTileC;
+  }
+  __device__ static __forceinline__ int chan_of(int e) {
+    return TC ? e / kRows : e % kTileC;
+  }
+  __device__ static __forceinline__ int at(int r, int cl) {
+    if (TC) return cl * kRowLen + (S == 2 ? (r & 1) * kHalf + (r >> 1) : r);
+    return r * kTileC + cl;
+  }
+  // shared-memory index of tap k of output row tl
+  __device__ static __forceinline__ int tap(int tl, int k, int cl) {
+    if (TC)
+      return cl * kRowLen +
+             (S == 2 ? (k & 1) * kHalf + tl + (k >> 1) : tl + k);
+    return (tl * S + k) * kTileC + cl;
+  }
+  // element i of this thread -> (row, channel) within the tile
+  __device__ static __forceinline__ void coords(int i, int& tl, int& cl) {
+    const int e = threadIdx.x + i * kThreads;
+    if (TC) {
+      tl = e % kTileT;
+      cl = e / kTileT;
     } else {
-      cl = i % kTileC;
-      r = i / kTileC;
+      cl = e % kTileC;
+      tl = e / kTileC;
     }
-    const int ti = in0 + r, c = c0 + cl;
-    float v = 0.f;
-    if (ti >= 0 && ti < g.T && c < g.C) v = load(xs + ti * g.xt + c * g.xc);
-    tile[cl][r] = v;
   }
-  __syncthreads();
 
-  float vals[kPerThread];
-  float s = 0.f;
+  // Stage tile (b, t0, c0): x rows into shared memory, the parameters of
+  // its channels into ws and ps (bias, gamma, beta). Every load is issued
+  // before the first store; rows and channels outside x are clamped for
+  // the address and masked to 0.
+  __device__ static void stage(const TX* __restrict__ x,
+                               const TP* __restrict__ w,
+                               const TP* __restrict__ bias,
+                               const TP* __restrict__ gamma,
+                               const TP* __restrict__ beta, const Geometry& g,
+                               int b, int t0, int c0, float* tile, float* ws,
+                               float* ps) {
+    const TX* xs = x + b * g.xb;
+    const int in0 = t0 * S - (K - 1) / 2;
+    float v[kIter];
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    int tl, cl;
-    tile_coords(threadIdx.x + i * kThreads, g.t_contig, tl, cl);
-    const int t = t0 + tl, c = c0 + cl;
-    float acc = 0.f;
-    if (t < g.T_out && c < g.C) {
-      const float* wc = w + c * g.K;
-      const float* row = &tile[cl][tl * g.stride];
-      for (int k = 0; k < g.K; ++k) acc += row[k] * wc[k];
-      if (bias != nullptr) acc += bias[c];
-      y[b * g.ob + t * g.ot + c * g.oc] = acc;
-      s += acc;
+    for (int j = 0; j < kIter; ++j) {
+      const int e = threadIdx.x + j * kThreads;
+      const int t = in0 + row_of(e), c = c0 + chan_of(e);
+      const int off = min(max(t, 0), g.T - 1) * g.xt + min(c, g.C - 1) * g.xc;
+      const float val = to_f(xs[off]);
+      v[j] = (e < kElems && t >= 0 && t < g.T && c < g.C) ? val : 0.f;
     }
-    vals[i] = acc;
-  }
-
-  const int nt = min(kTileT, g.T_out - t0), nc = min(kTileC, g.C - c0);
-  const float n = static_cast<float>(nt * nc);
-  const float mean = block_sum(s, red) / n;
-  float m2 = 0.f;
+    if (threadIdx.x < kTileC) {
+      const int c = min(c0 + static_cast<int>(threadIdx.x), g.C - 1);
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    int tl, cl;
-    tile_coords(threadIdx.x + i * kThreads, g.t_contig, tl, cl);
-    if (t0 + tl < g.T_out && c0 + cl < g.C) {
-      const float d = vals[i] - mean;
-      m2 += d * d;
+      for (int k = 0; k < K; ++k) ws[threadIdx.x * K + k] = to_f(w[c * K + k]);
+      ps[threadIdx.x] = bias != nullptr ? to_f(bias[c]) : 0.f;
+      ps[kTileC + threadIdx.x] = to_f(gamma[c]);
+      ps[2 * kTileC + threadIdx.x] = to_f(beta[c]);
+    }
+#pragma unroll
+    for (int j = 0; j < kIter; ++j) {
+      const int e = threadIdx.x + j * kThreads;
+      if (e < kElems) tile[at(row_of(e), chan_of(e))] = v[j];
     }
   }
-  m2 = block_sum(m2, red);
-  if (threadIdx.x == 0) {
-    const int n_tiles = gridDim.x * gridDim.y;
-    float* p = partials + 3 * (b * n_tiles + tt * g.n_tiles_c + ct);
-    p[0] = n;
-    p[1] = mean;
-    p[2] = m2;
-  }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-normalize_kernel(const float* __restrict__ y,
-                 const float* __restrict__ partials,
-                 const float* __restrict__ gamma,
-                 const float* __restrict__ beta, T* __restrict__ out,
-                 Geometry g, float eps) {
-  __shared__ float sn[kThreads], sm[kThreads], sq[kThreads];
-  const int tt = blockIdx.x, ct = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = gridDim.x * gridDim.y;
-  const float* pb = partials + 3 * b * n_tiles;
-
-  // fixed order: thread i merges tiles i, i + kThreads, ...; then a tree
-  float n = 0.f, mean = 0.f, m2 = 0.f;
-  for (int i = threadIdx.x; i < n_tiles; i += kThreads)
-    merge(n, mean, m2, pb[3 * i], pb[3 * i + 1], pb[3 * i + 2]);
-  sn[threadIdx.x] = n;
-  sm[threadIdx.x] = mean;
-  sq[threadIdx.x] = m2;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      float na = sn[threadIdx.x], ma = sm[threadIdx.x], qa = sq[threadIdx.x];
-      merge(na, ma, qa, sn[threadIdx.x + s], sm[threadIdx.x + s],
-            sq[threadIdx.x + s]);
-      sn[threadIdx.x] = na;
-      sm[threadIdx.x] = ma;
-      sq[threadIdx.x] = qa;
+  // The conv of this thread's kPerThread elements, bias added.
+  __device__ static __forceinline__ void conv(const float* tile,
+                                              const float* ws,
+                                              const float* ps,
+                                              float (&acc)[kPerThread]) {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      int tl, cl;
+      coords(i, tl, cl);
+      float a = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) a += tile[tap(tl, k, cl)] * ws[cl * K + k];
+      acc[i] = a + ps[cl];
     }
+  }
+
+  // The tile's statistics, about its first value y0 (the conv at its
+  // first row and channel, which every thread computes alike from shared
+  // memory): one reduction of the sum and the squares of y - y0. The
+  // mean is held as y0 + lo, so no precision goes to a common offset.
+  __device__ static __forceinline__ Stats stats(const float (&acc)[kPerThread],
+                                                const float* tile,
+                                                const float* ws,
+                                                const float* ps, int nt,
+                                                int nc, float* red) {
+    float y0 = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) y0 += tile[tap(0, k, 0)] * ws[k];
+    y0 += ps[0];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      int tl, cl;
+      coords(i, tl, cl);
+      const float d = acc[i] - y0;
+      if (tl < nt && cl < nc) {
+        s1 += d;
+        s2 += d * d;
+      }
+    }
+    block_sum2(s1, s2, red);
+    const float n = static_cast<float>(nt * nc), lo = s1 / n;
+    return {n, y0, lo, s2 - s1 * lo};
+  }
+};
+
+template <typename TX, typename TP, int K, int S, bool TC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dw_conv_glob_ln_kernel(const TX* __restrict__ x, TX* __restrict__ out,
+                       const TP* __restrict__ w, const TP* __restrict__ bias,
+                       const TP* __restrict__ gamma,
+                       const TP* __restrict__ beta, float4* partials,
+                       Geometry g) {
+  using Tl = Tile<TX, TP, K, S, TC>;
+  __shared__ float tile[Tl::kSmem];
+  __shared__ float ws[kTileC * K];
+  // bias, gamma, beta of the first tile, then of the one being staged
+  __shared__ float ps[2 * 3 * kTileC];
+  __shared__ float red[2 * kWarps];
+  __shared__ Stats red_stats[kWarps + 1];
+
+  const int G = gridDim.x, j = blockIdx.x, N = g.n_tiles;
+  const int lo = j * N / G, hi = (j + 1) * N / G;  // hi > lo: G <= N
+  auto box = [&](int i, int& b, int& t0, int& c0) {
+    const int r = i % g.per_sample;
+    b = i / g.per_sample;
+    t0 = (r % g.tiles_t) * kTileT;
+    c0 = (r / g.tiles_t) * kTileC;
+  };
+  auto stage = [&](int i, float* slot) {
+    int b, t0, c0;
+    box(i, b, t0, c0);
+    __syncthreads();  // the previous tile's reads of shared memory are done
+    Tl::stage(x, w, bias, gamma, beta, g, b, t0, c0, tile, ws, slot);
     __syncthreads();
-  }
-  const float mu = sm[0];
-  const float rstd = rsqrtf(sq[0] / sn[0] + eps);
+  };
+  auto put = [&](int b, const Stats& s) {  // this CTA's part of sample b
+    if (threadIdx.x == 0)
+      partials[b * G + j] = make_float4(s.n, s.hi, s.lo, s.m2);
+  };
 
-  const int t0 = tt * kTileT, c0 = ct * kTileC;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    int tl, cl;
-    tile_coords(threadIdx.x + i * kThreads, g.t_contig, tl, cl);
-    const int t = t0 + tl, c = c0 + cl;
-    if (t < g.T_out && c < g.C) {
-      const long long off = b * g.ob + t * g.ot + c * g.oc;
-      store(out + off, (y[off] - mu) * rstd * gamma[c] + beta[c]);
+  // phase 1: statistics, folded per (sample, CTA) in tile order; the
+  // conv values of the first and the last tile stay in registers
+  float acc[kPerThread], first[kPerThread];
+  int cur = lo / g.per_sample;
+  Stats part{0.f, 0.f, 0.f, 0.f};
+  for (int i = lo; i < hi; ++i) {
+    int b, t0, c0;
+    box(i, b, t0, c0);
+    if (b != cur) {
+      put(cur, part);
+      cur = b;
+      part = Stats{0.f, 0.f, 0.f, 0.f};
     }
+    float* slot = i == lo ? ps : ps + 3 * kTileC;
+    stage(i, slot);
+    Tl::conv(tile, ws, slot, acc);
+    merge(part, Tl::stats(acc, tile, ws, slot, min(kTileT, g.T_out - t0),
+                          min(kTileC, g.C - c0), red));
+    if (i == lo) {
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) first[k] = acc[k];
+    }
+  }
+  put(cur, part);
+
+  cg::this_grid().sync();
+
+  // phase 2: per sample, merge the parts of its CTAs in CTA order, then
+  // normalise as ((y - hi) - lo) * rstd
+  int stat_b = -1;
+  Stats st{};
+  float rstd = 0.f;
+  auto normalise = [&](const float (&vals)[kPerThread], int i,
+                       const float* slot) {
+    int b, t0, c0;
+    box(i, b, t0, c0);
+    if (b != stat_b) {
+      const int first_tile = b * g.per_sample;
+      const int j0 = owner(first_tile, N, G);
+      const int j1 = owner(first_tile + g.per_sample - 1, N, G);
+      Stats s{0.f, 0.f, 0.f, 0.f};
+      for (int jj = j0 + threadIdx.x; jj <= j1; jj += kThreads) {
+        const float4 p = __ldcg(partials + b * G + jj);
+        merge(s, Stats{p.x, p.y, p.z, p.w});
+      }
+      st = block_merge(s, red_stats);
+      rstd = rsqrtf(st.m2 / st.n + g.eps);
+      stat_b = b;
+    }
+    TX* ob = out + b * g.ob;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      int tl, cl;
+      Tl::coords(k, tl, cl);
+      const int t = t0 + tl, c = c0 + cl;
+      if (t < g.T_out && c < g.C)
+        store(ob + t * g.ot + c * g.oc,
+              ((vals[k] - st.hi) - st.lo) * rstd * slot[kTileC + cl] +
+                  slot[2 * kTileC + cl]);
+    }
+  };
+
+  // the kept tiles first (their parameters are still staged), then the
+  // others, recomputed from x
+  normalise(acc, hi - 1, hi - 1 == lo ? ps : ps + 3 * kTileC);
+  if (hi - lo > 1) normalise(first, lo, ps);
+  for (int i = lo + 1; i < hi - 1; ++i) {
+    stage(i, ps + 3 * kTileC);
+    Tl::conv(tile, ws, ps + 3 * kTileC, acc);
+    normalise(acc, i, ps + 3 * kTileC);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, void* out, float* y, float* partials,
-                   const float* w, const float* bias, const float* gamma,
-                   const float* beta, const Geometry& g, float eps,
-                   cudaStream_t stream) {
-  const dim3 grid((g.T_out + kTileT - 1) / kTileT, g.n_tiles_c, g.B);
-  conv_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), w, bias, y, partials, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  normalize_kernel<T><<<grid, kThreads, 0, stream>>>(
-      y, partials, gamma, beta, static_cast<T*>(out), g, eps);
-  return cudaGetLastError();
+template <typename TX, typename TP, int S, bool TC>
+const void* pick_k(int K) {
+  switch (K) {
+    case 1: return reinterpret_cast<const void*>(
+        dw_conv_glob_ln_kernel<TX, TP, 1, S, TC>);
+    case 3: return reinterpret_cast<const void*>(
+        dw_conv_glob_ln_kernel<TX, TP, 3, S, TC>);
+    case 5: return reinterpret_cast<const void*>(
+        dw_conv_glob_ln_kernel<TX, TP, 5, S, TC>);
+    case 7: return reinterpret_cast<const void*>(
+        dw_conv_glob_ln_kernel<TX, TP, 7, S, TC>);
+  }
+  return nullptr;
+}
+
+template <typename TX, typename TP>
+const void* pick_s(int K, int stride, int t_contig) {
+  if (stride == 1)
+    return t_contig ? pick_k<TX, TP, 1, true>(K) : pick_k<TX, TP, 1, false>(K);
+  if (stride == 2)
+    return t_contig ? pick_k<TX, TP, 2, true>(K) : pick_k<TX, TP, 2, false>(K);
+  return nullptr;
+}
+
+// The kernel for x's storage (fp32 or bf16), the parameters' storage,
+// K in {1, 3, 5, 7}, stride in {1, 2} and the contiguous axis; null for
+// anything else.
+const void* pick(int x_bf16, int p_bf16, int K, int stride, int t_contig) {
+  using bf = __nv_bfloat16;
+  if (x_bf16)
+    return p_bf16 ? pick_s<bf, bf>(K, stride, t_contig)
+                  : pick_s<bf, float>(K, stride, t_contig);
+  return p_bf16 ? pick_s<float, bf>(K, stride, t_contig)
+                : pick_s<float, float>(K, stride, t_contig);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tiles per sample: the wrapper sizes the (B, tiles, 3) partials buffer.
-int dw_conv_glob_ln_tiles(int T_out, int C) {
-  return ((T_out + kTileT - 1) / kTileT) * ((C + kTileC - 1) / kTileC);
+// The CTAs of the chosen kernel the current card holds at once: the
+// occupancy figure (CTAs an SM) times the SMs; the largest cooperative
+// grid. A negative value is a cudaError_t, negated.
+int dw_conv_glob_ln_capacity(int x_bf16, int p_bf16, int K, int stride,
+                             int t_contig) {
+  const void* fn = pick(x_bf16, p_bf16, K, stride, t_contig);
+  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return blocks * sms;
 }
 
-// x, out: storage in fp32 (bf16 == 0) or bf16 (bf16 == 1), with element
-// strides (B, T, C); y: fp32 scratch with out's strides; partials: fp32
-// (B, tiles, 3); w: fp32 (C, K); bias: fp32 (C,) or null; gamma, beta:
-// fp32 (C,). Returns a cudaError_t, 0 on success.
-int dw_conv_glob_ln_launch(const void* x, void* out, float* y,
-                           float* partials, const float* w,
-                           const float* bias, const float* gamma,
-                           const float* beta, int B, int T, int C, int T_out,
-                           int K, int stride, long long xb, long long xt,
-                           long long xc, long long ob, long long ot,
-                           long long oc, int t_contig, int bf16, float eps,
+// x, out: storage in fp32 (x_bf16 == 0) or bf16, element strides (B, T,
+// C); w (C, K), bias (C,) or null, gamma, beta (C,): contiguous, fp32
+// (p_bf16 == 0) or bf16; partials: fp32 (B, grid, 4), 16-byte aligned.
+// grid: the CTAs, at most the capacity and the tiles. One cooperative
+// launch on ``stream``.
+// Returns a cudaError_t, 0 on success.
+int dw_conv_glob_ln_launch(const void* x, void* out, const void* w,
+                           const void* bias, const void* gamma,
+                           const void* beta, void* partials, int B, int T,
+                           int C, int T_out, int K, int stride, long long xb,
+                           long long xt, long long xc, long long ob,
+                           long long ot, long long oc, int t_contig,
+                           int x_bf16, int p_bf16, int grid, float eps,
                            void* stream) {
-  if (K < 1 || K > kMaxK || K % 2 == 0 || stride < 1 ||
-      stride > kMaxStride || B < 1 || B > 65535 || C < 1 || T_out < 1)
+  const void* fn = pick(x_bf16, p_bf16, K, stride, t_contig);
+  if (fn == nullptr || B < 1 || T < 1 || C < 1 || T_out < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Geometry g{B, T, C, T_out, K, stride, (K - 1) / 2, (C + kTileC - 1) / kTileC,
-             xb, xt, xc, ob, ot, oc, t_contig};
-  if (g.n_tiles_c > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(x, out, y, partials, w, bias, gamma, beta,
-                                   g, eps, s)
-           : launch<float>(x, out, y, partials, w, bias, gamma, beta, g, eps,
-                           s);
-  return static_cast<int>(err);
+  const long long tiles_t = (T_out + kTileT - 1) / kTileT;
+  const long long tiles_c = (C + kTileC - 1) / kTileC;
+  const long long n_tiles = B * tiles_t * tiles_c;
+  // offsets within a sample, and tile indices times the grid, in 32 bits
+  const long long span = (T - 1) * xt + (C - 1) * xc + (T_out - 1) * ot +
+                         (C - 1) * oc;
+  if (grid < 1 || grid > n_tiles || (n_tiles + 1) * grid >= (1LL << 31) ||
+      span >= (1LL << 31) || xt < 0 || xc < 0 || ot < 0 || oc < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geometry g{B, T, C, T_out,
+             static_cast<int>(tiles_t), static_cast<int>(tiles_c),
+             static_cast<int>(tiles_t * tiles_c), static_cast<int>(n_tiles),
+             xb, ob, static_cast<int>(xt), static_cast<int>(xc),
+             static_cast<int>(ot), static_cast<int>(oc), eps};
+  void* args[] = {const_cast<void**>(&x), &out, const_cast<void**>(&w),
+                  const_cast<void**>(&bias), const_cast<void**>(&gamma),
+                  const_cast<void**>(&beta), &partials, &g};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -22,9 +22,31 @@ from tdanet_tpu_torch.ops import basic as ops
 
 _MODEL_REGISTRY: Dict[str, type] = {}
 
-# the positional-encoding buffer of reference checkpoints: the port
-# recomputes it instead of loading it
-_SKIP_SUFFIX = ".pe"
+# deterministic buffers that checkpoints may carry and the port recomputes
+# instead of loading: the attention's positional encoding, and Swin's
+# relative-position index and shifted-window mask (the JAX bridge's list)
+_SKIP_SUFFIXES = (".pe", "relative_position_index", "attn_mask")
+
+_NUMERIC_DTYPES = (np.bool_, np.int8, np.int16, np.int32, np.int64, np.uint8,
+                   np.uint16, np.uint32, np.uint64, np.float16, np.float32,
+                   np.float64, np.complex64, np.complex128)
+
+
+def _checkpoint_globals():
+    """What a weights-only load must admit besides tensors to read the
+    checkpoints the JAX package reads: numpy arrays (its ``serialize()``
+    state dicts) and ``TorchVersion`` (the ``infos`` of the reference
+    schema). Nothing else is admitted."""
+    core = getattr(np, "_core", None) or np.core
+    rebuild = core.multiarray._reconstruct
+    return [np.ndarray, np.dtype,
+            *{type(np.dtype(t)) for t in _NUMERIC_DTYPES},
+            rebuild,
+            # numpy 1 writes the function under numpy.core, numpy 2 under
+            # numpy._core: admit both names
+            (rebuild, "numpy.core.multiarray._reconstruct"),
+            (rebuild, "numpy._core.multiarray._reconstruct"),
+            torch.torch_version.TorchVersion]
 
 
 def register_model(cls=None, *, name: str | None = None):
@@ -62,9 +84,9 @@ def warn_unused_kwargs(cls_name: str, unused: Dict[str, Any]):
 
 def flat_to_state_dict(flat: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flat ``{dotted_key: array}`` -> torch state dict, dtypes kept.
-    Drops the positional-encoding buffer, which the port recomputes."""
+    Drops the deterministic buffers the port recomputes."""
     return {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
-            for k, v in flat.items() if not k.endswith(_SKIP_SUFFIX)}
+            for k, v in flat.items() if not k.endswith(_SKIP_SUFFIXES)}
 
 
 def strip_prefix(state: Dict[str, Any], prefix="audio_model."):
@@ -75,8 +97,10 @@ def strip_prefix(state: Dict[str, Any], prefix="audio_model."):
 
 def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     """Read a reference-format .pth/.bin ({model_name, state_dict,
-    model_args, infos}) or a raw state dict, on the CPU."""
-    conf = torch.load(path, map_location="cpu", weights_only=True)
+    model_args, infos}) or a raw state dict, on the CPU. The load is
+    weights-only; it admits numpy arrays and ``TorchVersion`` besides."""
+    with torch.serialization.safe_globals(_checkpoint_globals()):
+        conf = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" not in conf:
         conf = {"model_name": None, "state_dict": conf, "model_args": {}}
     conf["state_dict"] = strip_prefix(dict(conf["state_dict"]))
@@ -142,7 +166,7 @@ class BaseModel(nn.Module):
             "model_args": self.get_model_args(),
             "infos": {"software_versions": {
                 "tdanet_tpu_torch_version": tdanet_tpu_torch.__version__,
-                # a plain str: weights-only loading refuses TorchVersion
+                # a plain str, which any weights-only torch.load reads
                 "torch_version": str(torch.__version__),
             }},
         }

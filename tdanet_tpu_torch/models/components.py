@@ -108,8 +108,8 @@ class FFN(nn.Module):
 
 
 class MultiHeadAttentionModule(nn.Module):
-    """TDANetBest's attention sublayer, with the reference checkpoint's two
-    quirks:
+    """TDANetBest's attention sublayer. By default it has the reference
+    checkpoint's two quirks:
 
     - the (B, T, C) input runs through batch_first=False attention, so it
       attends over the BATCH axis with T as the batch. For one utterance
@@ -118,11 +118,15 @@ class MultiHeadAttentionModule(nn.Module):
       to every row: each row then gets what it would alone, which is how
       a batch of independent utterances is separated;
     - the residual is the attention output added to itself.
+
+    ``fixed=True`` is the repaired flavour: attention over T within each
+    row, and the residual ``normed input + pe + attention output``.
     """
 
-    def __init__(self, channels, n_head=8):
+    def __init__(self, channels, n_head=8, fixed=False):
         super().__init__()
         self.n_head = n_head
+        self.fixed = fixed
         self.attn_in_norm = nn.LayerNorm(channels)
         # parameter holder only: its forward is not the reference's math
         self.attn = nn.MultiheadAttention(channels, n_head)
@@ -141,7 +145,12 @@ class MultiHeadAttentionModule(nn.Module):
         out = ops.layer_norm(x.transpose(1, 2), self.attn_in_norm.weight,
                              self.attn_in_norm.bias)
         out = out + self._pos_enc(T, C, out)
-        if per_utterance or B == 1:
+        if self.fixed:  # attention over T: (T, B, C) is (L, N, E)
+            q = out.transpose(0, 1)
+            attn_out = ops.multi_head_attention(
+                q, q, q, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
+                a.out_proj.bias, self.n_head).transpose(0, 1)
+        elif per_utterance or B == 1:
             v = F.linear(out, a.in_proj_weight[2 * C:].to(out.dtype),
                          a.in_proj_bias[2 * C:].to(out.dtype))
             attn_out = F.linear(v, a.out_proj.weight.to(out.dtype),
@@ -150,17 +159,17 @@ class MultiHeadAttentionModule(nn.Module):
             attn_out = ops.multi_head_attention(
                 out, out, out, a.in_proj_weight, a.in_proj_bias,
                 a.out_proj.weight, a.out_proj.bias, self.n_head)
-        res = ops.layer_norm(attn_out + attn_out, self.norm.weight,
-                             self.norm.bias)
+        res = ops.layer_norm((out if self.fixed else attn_out) + attn_out,
+                             self.norm.weight, self.norm.bias)
         return res.transpose(1, 2)
 
 
 class GA(nn.Module):
     """Global attention: attention sublayer + FFN, each with a residual."""
 
-    def __init__(self, out_chan):
+    def __init__(self, out_chan, fixed_mha=False):
         super().__init__()
-        self.attn = MultiHeadAttentionModule(out_chan, 8)
+        self.attn = MultiHeadAttentionModule(out_chan, 8, fixed=fixed_mha)
         self.mlp = FFN(out_chan, out_chan * 2)
 
     def forward(self, x, per_utterance=False):
@@ -206,7 +215,7 @@ class UConvBlock(nn.Module):
     with the FINER scale depth-3, as the reference does."""
 
     def __init__(self, out_channels=128, in_channels=512,
-                 upsampling_depth=4):
+                 upsampling_depth=4, fixed_mha=False):
         super().__init__()
         self.depth = upsampling_depth
         self.proj_1x1 = ConvNormAct(out_channels, in_channels, 1)
@@ -218,7 +227,7 @@ class UConvBlock(nn.Module):
                for _ in range(1, upsampling_depth)])
         self.loc_glo_fus = nn.ModuleList(
             [LA(in_channels, in_channels) for _ in range(upsampling_depth)])
-        self.globalatt = GA(in_channels)
+        self.globalatt = GA(in_channels, fixed_mha=fixed_mha)
         self.last_layer = nn.ModuleList(
             [LA(in_channels, in_channels, 5)
              for _ in range(upsampling_depth - 1)])
@@ -254,13 +263,18 @@ class UConvBlock(nn.Module):
 
 class Recurrent(nn.Module):
     """One shared UConvBlock applied ``_iter`` times; from the second
-    iteration its input is concat_block(mixture + x)."""
+    iteration its input is concat_block(mixture + x).
+
+    ``remat`` is kept for the training step, where it is to mean
+    ``torch.utils.checkpoint`` over the iterations; inference ignores it."""
 
     def __init__(self, out_channels=128, in_channels=512, upsampling_depth=4,
-                 _iter=4):
+                 _iter=4, fixed_mha=False, remat=False):
         super().__init__()
-        self.unet = UConvBlock(out_channels, in_channels, upsampling_depth)
+        self.unet = UConvBlock(out_channels, in_channels, upsampling_depth,
+                               fixed_mha=fixed_mha)
         self.iter = _iter
+        self.remat = remat
         self.concat_block = nn.Sequential(
             nn.Conv1d(out_channels, out_channels, 1, groups=out_channels),
             nn.PReLU())

@@ -24,7 +24,8 @@ from tdanet_tpu_torch.ops import basic as ops
 class TDANetBest(BaseModel):
     def __init__(self, out_channels=128, in_channels=512, num_blocks=16,
                  upsampling_depth=4, enc_kernel_size=21, num_sources=2,
-                 sample_rate=16000, **unused):
+                 sample_rate=16000, fixed_mha=False, remat=False,
+                 **unused):
         warn_unused_kwargs(type(self).__name__, unused)
         super().__init__(sample_rate=sample_rate)
         self.out_channels = out_channels
@@ -44,7 +45,7 @@ class TDANetBest(BaseModel):
         self.ln = GlobLN(C)
         self.bottleneck = nn.Conv1d(C, out_channels, 1)
         self.sm = Recurrent(out_channels, in_channels, upsampling_depth,
-                            num_blocks)
+                            num_blocks, fixed_mha=fixed_mha, remat=remat)
         self.mask_net = nn.Sequential(
             nn.PReLU(), nn.Conv1d(out_channels, num_sources * C, 1))
         self.decoder = nn.ConvTranspose1d(C * num_sources, num_sources, K,

@@ -68,7 +68,8 @@ def trim_renorm(mix, est_row):
     renormalise its energy to the mixture's over the true region."""
     T = mix.shape[-1]
     out = est_row[:, :T]
-    scale = np.abs(mix).sum() / (np.abs(out).sum() + 1e-8)
+    # both sums in the estimate's precision, as separate takes them
+    scale = np.abs(mix).sum(dtype=out.dtype) / (np.abs(out).sum() + 1e-8)
     return out * scale
 
 
@@ -78,7 +79,8 @@ def separate_batched(model, wavs, batch_size=8, lattice=None,
     ``batch_size`` at a time. Every row is separated as if alone (the
     per-utterance attention collapse), so results do not depend on which
     utterances share a batch. Returns numpy (n_src, T_i) estimates in input
-    order."""
+    order, in the model's dtype (bf16 upcast to float32, as in
+    :func:`separate`)."""
     device, dtype = _device_dtype(model)
     lattice = lattice or getattr(model, "lcm", 1)
     wavs = [np.asarray(w, np.float32) for w in wavs]
@@ -92,7 +94,8 @@ def separate_batched(model, wavs, batch_size=8, lattice=None,
                 batch[row, :wavs[i].shape[-1]] = wavs[i]
             xb = torch.from_numpy(batch).to(device=device, dtype=dtype)
             est = model(xb, num_blocks=num_blocks, per_utterance=True)
-            est = est.float().cpu().numpy()
+            est = est.to(torch.promote_types(est.dtype, torch.float32)) \
+                .cpu().numpy()
             for row, i in enumerate(chunk):
                 outputs[i] = trim_renorm(wavs[i], est[row])
     return outputs

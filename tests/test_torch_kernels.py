@@ -1,6 +1,8 @@
 """The fused depthwise conv + GlobLN of the port against the JAX package's
 Pallas kernels (interpret mode off TPU, as tests/test_fused_pyramid.py
-runs them), and the CUDA kernel against its plain version on a card.
+runs them); the CUDA kernel's tile and grid plan and, mirrored in fp32 in
+its own order, its merge of the statistics; and the CUDA kernel against
+its plain version on a card.
 
 JAX is imported inside the tests that need it, so the CUDA test also runs
 where JAX is absent:
@@ -10,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
     dw_conv_glob_ln, dw_conv_glob_ln_chunked, dw_conv_glob_ln_reference)
+from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, block_sites
 
 # the JAX fused-pyramid suite's own tolerance (fp32)
 RTOL, ATOL = 1e-4, 1e-5
@@ -126,3 +130,242 @@ def test_cuda_kernel_matches_plain_version():
         assert snr.item() >= 40, (T, stride, K, snr.item())
     with pytest.raises(ValueError, match="must lie on"):  # never a copy
         dw_conv_glob_ln(x, w.cpu(), b, g, be, stride=stride, K=K)
+
+
+def cta_tiles(p, j):
+    """The tiles CTA j owns, in the order it walks them (the kernel's
+    lo = j N / G, hi = (j + 1) N / G)."""
+    return range(j * p.n_tiles // p.grid, (j + 1) * p.n_tiles // p.grid)
+
+
+def tile_owner(p, i):
+    """The CTA that owns tile i (the kernel's owner())."""
+    return ((i + 1) * p.grid - 1) // p.n_tiles
+
+
+def tile_box(p, i):
+    """Tile i as (sample, first output row, first channel), the kernel's
+    numbering: sample by sample, channel tile by channel tile, time tile
+    fastest."""
+    b, r = divmod(i, p.per_sample)
+    ct, tt = divmod(r, p.tiles_t)
+    return b, tt * dw.TILE_T, ct * dw.TILE_C
+
+
+# the served forward's 20 site shapes at C=512: (T_out, C)
+SITE_SHAPES = [((T - 1) // stride + 1, 512) for T in SCALES
+               for _, stride, _ in VARIANTS]
+
+
+@pytest.mark.parametrize("B", [1, 4, 24])
+@pytest.mark.parametrize("capacity", [7, 132 * 4, 132 * 8])
+def test_plan_owns_every_output_once(B, capacity):
+    """At every site shape: the wrapper's grid is at most the capacity
+    (occupancy x SMs) and the tiles; the CTAs' runs cover the tiles in
+    order, each once; every output element lies in exactly one tile;
+    tile_owner inverts the runs."""
+    for T_out, C in SITE_SHAPES:
+        p = dw.plan(B, T_out, C, capacity)
+        assert 1 <= p.grid <= min(capacity, p.n_tiles)
+        runs = [cta_tiles(p, j) for j in range(p.grid)]
+        assert all(len(r) >= 1 for r in runs)
+        assert [i for r in runs for i in r] == list(range(p.n_tiles))
+        owned = np.zeros((B, T_out, C), np.int32)
+        for j, r in enumerate(runs):
+            for i in (r[0], r[-1]):
+                assert tile_owner(p, i) == j
+            for i in r:
+                b, t0, c0 = tile_box(p, i)
+                owned[b, t0:t0 + dw.TILE_T, c0:c0 + dw.TILE_C] += 1
+        assert (owned == 1).all(), (T_out, C)
+
+
+def test_plan_needs_capacity():
+    with pytest.raises(ValueError):
+        dw.plan(1, 10, 8, 0)
+
+
+def test_block_sites_are_the_model_calls(monkeypatch):
+    """The site list the timing probe sums over is what a block runs."""
+    from tdanet_tpu_torch.models import TDANetBest
+    from tdanet_tpu_torch.models import components
+    seen = []
+
+    def spy(x, w, b, g, be, *, stride, K):
+        seen.append((x.shape[1], K, stride, b is not None))
+        return dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K)
+    monkeypatch.setattr(components, "dw_conv_glob_ln", spy)
+    model = TDANetBest(out_channels=8, in_channels=16, num_blocks=2,
+                       upsampling_depth=5, enc_kernel_size=4)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        model(torch.randn(1, 32000))
+    assert seen == block_sites(2010, 5) * 2
+    assert len(seen) == 64
+
+
+THREADS = 512  # a CTA of the kernel
+
+
+def _chan(a, b):
+    """The kernel's merge of Stats b (count, hi, lo, M2; mean hi + lo)
+    into a, in fp32, elementwise over tensors: a keeps its hi."""
+    (na, ha, la, qa), (nb, hb, lb, qb) = a, b
+    n = na + nb
+    r = 1.0 / torch.where(n > 0, n, torch.ones_like(n))
+    d = (hb - ha) + (lb - la)
+    both = (n, ha, la + d * (nb * r), qa + (qb + d * d * (na * r) * nb))
+    return tuple(torch.where((na > 0) & (nb > 0), m,
+                             torch.where(na > 0, x, y))
+                 for m, x, y in zip(both, a, b))
+
+
+def _tree(parts, o):
+    """A shuffle-down tree over the last axis from offset o: lane 0's
+    result."""
+    while o:
+        parts = _chan(tuple(p[..., :o] for p in parts),
+                      tuple(p[..., o:2 * o] for p in parts))
+        o //= 2
+    return tuple(p[..., 0] for p in parts)
+
+
+def _block_merge(parts):
+    """The kernel's block_merge of one Stats per thread: a tree in each
+    warp, then one over the 16 warp results in warp 0."""
+    warps = _tree(tuple(p.reshape(THREADS // 32, 32) for p in parts), 16)
+    return _tree(warps, THREADS // 64)
+
+
+def _mirror_stats(y, p):
+    """Each sample's (count, hi, lo, M2) of y (B, T_out, C) fp32 as the
+    kernel merges them: per tile one sum and one sum of squares of y - y0,
+    y0 the tile's first value; folded per (sample, CTA) in tile order; per
+    sample the CTAs' parts, one a thread in CTA order, a block merge."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    zero = (f32(0.0),) * 4
+    partials = {}
+    for j in range(p.grid):
+        for i in cta_tiles(p, j):
+            b, t0, c0 = tile_box(p, i)
+            v = y[b, t0:t0 + dw.TILE_T, c0:c0 + dw.TILE_C]
+            y0 = v[0, 0]
+            s1, s2 = (v - y0).sum(), (v - y0).square().sum()
+            n = f32(float(v.numel()))
+            lo = s1 / n
+            partials[b, j] = _chan(partials.get((b, j), zero),
+                                   (n, y0, lo, s2 - s1 * lo))
+    stats = []
+    for b in range(y.shape[0]):
+        first = b * p.per_sample
+        js = list(range(tile_owner(p, first),
+                        tile_owner(p, first + p.per_sample - 1) + 1))
+        assert len(js) <= THREADS  # one part a thread
+        lanes = tuple(torch.zeros(THREADS) for _ in range(4))
+        for k, j in enumerate(js):
+            for lane, part in zip(lanes, partials[b, j]):
+                lane[k] = part
+        stats.append(_block_merge(lanes))
+    return stats
+
+
+@pytest.mark.parametrize("B,T_out,C,capacity,offset", [
+    (1, 2010, 512, 528, 0.0), (1, 2010, 512, 528, 1e3),
+    (1, 2010, 512, 100, 1e3), (2, 300, 96, 7, 1e3), (3, 126, 512, 40, 0.0)])
+def test_merge_mirror_matches_fp64_two_pass(B, T_out, C, capacity, offset):
+    """The kernel's merge order and forms, mirrored in fp32, give every
+    sample's mean and variance within 1e-6 relative of fp64 two-pass
+    statistics, also on activations with a large common offset, where
+    fp32 E[y^2] - E[y]^2 fails."""
+    rng = np.random.default_rng(T_out + C)
+    y64 = offset + rng.standard_normal((B, T_out, C)) \
+        * rng.uniform(0.5, 2.0, (B, 1, 1))
+    y = torch.from_numpy(y64.astype(np.float32))
+    p = dw.plan(B, T_out, C, capacity)
+    for b, (n, hi, lo, m2) in enumerate(_mirror_stats(y, p)):
+        assert n.dtype == hi.dtype == lo.dtype == m2.dtype == torch.float32
+        ref = y[b].double()
+        want_var = (ref - ref.mean()).square().mean().item()
+        assert n.item() == T_out * C
+        mean = hi.item() + lo.item()
+        assert abs(mean - ref.mean().item()) <= 1e-6 * abs(
+            ref.mean().item()) + 1e-6
+        assert abs(m2.item() / n.item() - want_var) <= 1e-6 * want_var
+        if offset:  # the one-pass form in fp32 is far off here
+            yb = y[b]
+            naive = (yb.square().mean() - yb.mean().square()).item()
+            assert abs(naive - want_var) > 1e-3 * want_var
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_at_every_site_shape():
+    """The kernel against its plain version at the 20 site shapes, B 1
+    and 4, fp32 and bf16 (bf16 parameters, as a bf16 model has them), in
+    the model's (B, C, T) layout and in (B, T, C); a second run equal bit
+    for bit; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    for B in (1, 4):
+        for T in SCALES:
+            for K, stride, bias in VARIANTS:
+                arrs = _torch(_inputs(B, T, 512, K, bias, seed=T + K), bias)
+                arrs = [None if a is None else a.cuda() for a in arrs]
+                for t_major in (True, False):
+                    x = arrs[0]
+                    if t_major:
+                        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+                    for dtype in (torch.float32, torch.bfloat16):
+                        xd = x.to(dtype)
+                        ps = [None if a is None else a.to(dtype)
+                              for a in arrs[1:]]
+                        before = dw_conv_glob_ln.launches
+                        with torch.inference_mode():
+                            got = dw_conv_glob_ln(xd, *ps, stride=stride,
+                                                  K=K)
+                            again = dw_conv_glob_ln(xd, *ps, stride=stride,
+                                                    K=K)
+                            ref = dw_conv_glob_ln_reference(
+                                xd.float(), *[None if a is None else a.float()
+                                              for a in ps],
+                                stride=stride, K=K)
+                        torch.cuda.synchronize()
+                        assert dw_conv_glob_ln.launches == before + 2
+                        assert torch.equal(got, again)
+                        assert got.dtype == dtype
+                        assert got.stride(1 if t_major else 2) == 1
+                        case = (B, T, K, stride, t_major, dtype)
+                        if dtype == torch.float32:
+                            err = (got - ref).abs().max().item()
+                            assert err <= 1e-4 * ref.abs().max().item(), case
+                        else:
+                            snr = 10 * torch.log10(
+                                ref.square().sum()
+                                / (got.float() - ref).square().sum())
+                            assert snr.item() >= 40, case
+
+
+@pytest.mark.gpu
+def test_cuda_graph_replay_equals_eager():
+    """The cooperative launch is captured in a CUDA graph, and its replay
+    gives the eager output bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for T, stride, K, bias in [(2010, 1, 5, True), (2010, 2, 5, True),
+                               (126, 1, 1, False)]:
+        arrs = _torch(_inputs(2, T, 512, K, bias, seed=T), bias)
+        x, w, b, g, be = (None if a is None else a.cuda() for a in arrs)
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        with torch.inference_mode():
+            eager = dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K)
+            graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), (T, stride, K)

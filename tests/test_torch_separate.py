@@ -67,6 +67,44 @@ def test_from_pretrain_strips_lightning_prefix(exported, tmp_path):
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
+@pytest.mark.parametrize("kind", ["jax_serialize", "torch_version_infos"])
+def test_from_pretrain_reads_what_the_jax_package_reads(exported, tmp_path,
+                                                        kind):
+    """Two more checkpoints the JAX package's reader takes: its own
+    ``torch.save(model.serialize(params))`` (numpy arrays in the state
+    dict) and a reference-schema file whose ``infos`` holds a
+    ``TorchVersion``. Both give export_torch_pth's state dict."""
+    from tdanet_tpu.models import load_torch_checkpoint as jax_load
+    jmodel, params, path = exported
+    other = str(tmp_path / f"{kind}.pth")
+    if kind == "jax_serialize":
+        conf = jmodel.serialize(params)
+        assert all(isinstance(v, np.ndarray)
+                   for v in conf["state_dict"].values())
+    else:
+        conf = torch.load(path, weights_only=True)
+        conf["infos"] = {"software_versions": {
+            "torch_version": torch.__version__}}
+        assert isinstance(conf["infos"]["software_versions"][
+            "torch_version"], torch.torch_version.TorchVersion)
+    torch.save(conf, other)
+    jax_load(other)  # the JAX package's reader takes it
+    want = BaseModel.from_pretrain(path).state_dict()
+    got = BaseModel.from_pretrain(other).state_dict()
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_checkpoint_load_admits_no_other_class(tmp_path):
+    """The weights-only load still refuses what it was not told of."""
+    import fractions
+    from tdanet_tpu_torch.models.base import load_torch_checkpoint
+    path = str(tmp_path / "odd.pth")
+    torch.save({"state_dict": {}, "infos": fractions.Fraction(1, 3)}, path)
+    with pytest.raises(Exception, match="[Ww]eights only"):
+        load_torch_checkpoint(path)
+
+
 def test_from_pretrain_missing_path_raises_without_network():
     with pytest.raises(FileNotFoundError, match="local checkpoint"):
         BaseModel.from_pretrain("org/some-hub-model")
@@ -95,6 +133,23 @@ def test_separate_batched_keeps_utterances_independent(exported):
         want = separate(model, w)
         assert g.shape == want.shape == (2, w.shape[-1])
         np.testing.assert_allclose(g, want, rtol=1e-5, atol=1e-5)
+
+
+def test_separate_batched_keeps_float64():
+    """A float64 model's separate_batched answers in float64, equal to
+    separate's (the JAX separate_batched keeps the model's dtype). A
+    small model: float64 convolutions are slow on the CPU."""
+    model = TDANetBest(out_channels=8, in_channels=16, num_blocks=1,
+                       upsampling_depth=2, enc_kernel_size=4)
+    model = model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.double().eval()
+    wavs = [_wav(1000, 7), _wav(990, 8), _wav(500, 9)]  # two share a bucket
+    got = separate_batched(model, wavs, batch_size=8)
+    for w, g in zip(wavs, got):
+        want = separate(model, w)
+        assert g.dtype == want.dtype == np.float64
+        np.testing.assert_allclose(g, want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(want).max())
 
 
 def test_inference_cli_writes_one_wav_per_source(exported, tmp_path):

@@ -183,8 +183,31 @@ def test_load_jax_params_rejects_a_missing_or_extra_key():
     with pytest.raises(RuntimeError, match="Missing key"):
         load_jax_params(t, {k: v for k, v in flat.items() if k != some})
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        load_jax_params(t, {**flat, "layers.0.blocks.0.attn_mask":
+        load_jax_params(t, {**flat, "layers.0.blocks.0.not_a_parameter":
                             np.zeros(3)})
+
+
+def test_state_dict_with_buffers_loads_strictly():
+    """A Swin state dict that carries its deterministic buffers (relative
+    position index, shifted-window mask), as a torch Swin module with
+    persistent buffers writes it, loads with strict=True: the port
+    recomputes them, as the JAX bridge does."""
+    _, _, t, flat = _pair("SwinTransformerSys", **UNET_SHIFTED)
+    buffers = {f"{name}.relative_position_index": np.zeros((16, 16), np.int64)
+               for name, m in t.named_modules()
+               if hasattr(m, "relative_position_index")}
+    buffers.update({f"{name}.attn_mask": np.zeros((4, 16, 16))
+                    for name, m in t.named_modules()
+                    if getattr(m, "attn_mask", None) is not None})
+    assert any(k.endswith("attn_mask") for k in buffers)
+    assert any(k.endswith("relative_position_index") for k in buffers)
+    fresh = ts.SwinTransformerSys(**UNET_SHIFTED).double()
+    load_jax_params(fresh, {**flat, **buffers})
+    for k, v in t.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
+    for name, m in fresh.named_modules():
+        if getattr(m, "attn_mask", None) is not None:
+            assert m.attn_mask.abs().max() > 0  # recomputed, not loaded
 
 
 def test_unknown_kwargs_warn():

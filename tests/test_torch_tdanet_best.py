@@ -1,7 +1,7 @@
 """The port's TDANetBest against the JAX package's, in float64, on the same
 perturbed weights: B=1 (attention collapse), B=2 (attention over the batch
 axis, the reference quirk), on- and off-lattice lengths, an early-exit
-depth, and pyramid depths 5 and 4."""
+depth, pyramid depths 5 and 4, and the repaired attention (fixed_mha)."""
 import numpy as np
 import pytest
 import torch
@@ -84,6 +84,40 @@ def test_depth4_model_matches_jax_fp64(B):
     with torch.inference_mode():
         got = tmodel(torch.from_numpy(x)).numpy()
     _assert_close(got, want)
+
+
+@pytest.fixture(scope="module")
+def fixed_pair():
+    cfg = dict(CFG, fixed_mha=True)
+    jmodel, flat = jax_tdanet_best(cfg, seed=12)
+    return jmodel, flat, port_tdanet_best(cfg, flat, torch.float64)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_fixed_mha_matches_jax_fp64(fixed_pair, B):
+    """fixed_mha=True: attention over T in every row (no batch-axis
+    attention, no B=1 collapse) and the residual normed input + pe +
+    attention output. At B=2 the batch-axis form would differ."""
+    jmodel, flat, tmodel = fixed_pair
+    assert tmodel.sm.unet.globalatt.attn.fixed
+    x = np.random.default_rng(13 + B).standard_normal((B, 8000))
+    want = _jax_forward(jmodel, flat, x)
+    with torch.inference_mode():
+        got = tmodel(torch.from_numpy(x)).numpy()
+        unfixed = port_tdanet_best(CFG, flat, torch.float64)(
+            torch.from_numpy(x)).numpy()
+    _assert_close(got, want)
+    assert np.abs(unfixed - want).max() > 1e-3 * np.abs(want).max()
+
+
+def test_remat_is_accepted_and_kept():
+    from tdanet_tpu_torch.models import TDANetBest
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # neither flag lands in **unused
+        model = TDANetBest(**CFG, remat=True, fixed_mha=False)
+    assert model.sm.remat is True
+    assert not model.sm.unet.globalatt.attn.fixed
 
 
 def test_per_utterance_rows_equal_single_rows(pair):
