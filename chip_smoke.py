@@ -29,16 +29,20 @@ exit code is not 0:
      device kernels of dw_conv_glob_ln, and their device time;
   7. the two UConvBlock-half kernels (pyramid_fused, fuse_expand_fused)
      against their plain versions at full width (T 2010, C_out 128, C 512,
-     depth 5), B 1 and 4: every output, pad rows included, fp32 with TF32
-     off and bf16;
+     depth 5), B 1 and 4 (fp32 with TF32 off, and bf16) and B 24 bf16, and
+     at two ragged shapes (T 1999 depth 5, T 1001 depth 4): every output,
+     pad rows included; a second run equal bit for bit and a CUDA-graph
+     replay equal to the eager call (probes/uconv_halves.py);
   8. the fused block path (pyramid_fused -> GA -> fuse_expand_fused),
      with its launch counts set to 0 just before: one block against
      UConvBlock.forward at B 1 and 4 (fp32), and 20 chained blocks against
      20 module blocks at B 24 in bf16 and B 1 in fp32; each wrapper's
      count must rise by exactly 1 per block;
-  9. times: each half-block kernel against its plain version (B 1 and 4,
-     fp32), and ms/block of the module, hybrid and fused blocks (B 1 fp32,
-     B 24 bf16), eager and replayed from a CUDA graph.
+  9. times: each half-block kernel alone against its plain version (B 1
+     and 4 fp32, B 24 bf16), its device kernels per call and a per-launch
+     profile, each half's bound at the three cases; ms/block of the
+     module, hybrid and fused blocks (B 1 fp32, B 24 bf16), eager and
+     replayed from a CUDA graph, and a profile of the fused block.
   10. the window kernels (roll_and_window_partition, window_merge_and_roll)
      against their plain versions at the seven site shapes of Swin-UNet
      tiny, B 1, 2 (the Swin path's batch) and 8, fp32, bf16 and fp64:
@@ -54,7 +58,8 @@ exit code is not 0:
      classifier forward (12 launches each);
   12. every micro-kernel of the two op probes against its plain version at
      (24, 2032, 512) bf16, the products' SNR printed, and the count of
-     wgmma (HGMMA) instructions in the built library, which must not be 0;
+     wgmma (HGMMA) instructions in the built micro-kernel and UConvBlock
+     libraries, none of which may be 0;
   13. times: the window kernels against plain, the Swin forward and
      forward + backward, and, with their launch counts set to 0 just
      before, the two probes through their entry points.
@@ -80,8 +85,7 @@ from tdanet_tpu_torch.kernels import _build, micro_ops
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
     dw_conv_glob_ln, dw_conv_glob_ln_chunked, dw_conv_glob_ln_reference)
 from tdanet_tpu_torch.kernels.uconv_block import (
-    fuse_expand_fused, fuse_expand_fused_reference, pyramid_fused,
-    pyramid_fused_reference, scale_lengths, to_raw)
+    fuse_expand_fused, kernels_per_call, pyramid_fused, scale_lengths, to_raw)
 from tdanet_tpu_torch.kernels.window_process import (
     roll_and_window_partition, roll_and_window_partition_reference,
     window_merge_and_roll, window_merge_and_roll_reference)
@@ -89,7 +93,7 @@ from tdanet_tpu_torch.models import (
     BaseModel, SwinTransformer, SwinTransformerSys, TDANetBest)
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
-    dw_sites, hybrid, mosaic_ops, mosaic_ops2, uconv_kernel)
+    dw_sites, hybrid, mosaic_ops, mosaic_ops2, uconv_halves, uconv_kernel)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.utils import separate, separate_batched
 from tdanet_tpu_torch.utils.timing import (
@@ -188,66 +192,31 @@ def tone_mix(seconds, seed, sr=16000):
     return np.sum(srcs, axis=0).astype(np.float32)
 
 
-def half_inputs(B, dtype, gen, seed):
-    """A seeded full-width block on the card, its padded input, and the
-    plain pyramid's outputs (fp32) with the post-GA global feature: the
-    operands of both halves."""
-    T, Cout, depth = UCONV["T"], UCONV["Cout"], UCONV["depth"]
-    block = uconv_kernel.seeded_block(Cout, C, depth, seed).cuda()
-    x_raw = to_raw(torch.randn(B, Cout, T, generator=gen).cuda().to(dtype))
-    scales, pooled = pyramid_fused_reference(
-        x_raw.float(), block, depth=depth, raw=True, raw_in=True, T0=T)
-    Tg = scale_lengths(T, depth)[-1]
-    g = block.globalatt(pooled[:, :Tg].transpose(1, 2)).transpose(1, 2)
-    return block, x_raw, [s.to(dtype) for s in scales], g.to(dtype)
+# (B, dtype, T, depth) of phase 7: the request and the bench batch at full
+# width, and two ragged lengths
+HALF_CASES = ((1, torch.float32, 2010, 5), (1, torch.bfloat16, 2010, 5),
+              (4, torch.float32, 2010, 5), (4, torch.bfloat16, 2010, 5),
+              (24, torch.bfloat16, 2010, 5), (3, torch.float32, 1999, 5),
+              (2, torch.bfloat16, 1001, 4))
 
 
-def check_halves(gen):
+def check_halves():
     """Both kernels against their plain versions on the same inputs, every
-    output with its pad rows: fp32 max |d| <= 2e-3 max |ref|, bf16 (plain
-    in fp32 on the same bf16 inputs) SNR >= 30 dB. Returns the largest
-    fp32 max |d| of each kernel."""
-    T, depth = UCONV["T"], UCONV["depth"]
-    Ts = scale_lengths(T, depth)
-    worst = {"pyramid_fused": 0.0, "fuse_expand_fused": 0.0}
-    with torch.inference_mode():
-        for B in (1, 4):
-            for dtype in (torch.float32, torch.bfloat16):
-                block, x_raw, scales, g = half_inputs(B, dtype, gen, seed=B)
-                got_s, got_g = pyramid_fused(x_raw, block, depth=depth,
-                                             raw=True, raw_in=True, T0=T)
-                ref_s, ref_g = pyramid_fused_reference(
-                    x_raw.float(), block, depth=depth, raw=True,
-                    raw_in=True, T0=T)
-                got = fuse_expand_fused(scales, g, x_raw, block, Ts=Ts)
-                ref = fuse_expand_fused_reference(
-                    [s.float() for s in scales], g.float(), x_raw.float(),
-                    block, Ts=Ts)
-                pairs = {"pyramid_fused": list(zip(got_s + [got_g],
-                                                   ref_s + [ref_g])),
-                         "fuse_expand_fused": [(got, ref)]}
-                for name, outs in pairs.items():
-                    for i, (a, b) in enumerate(outs):
-                        if a.shape != b.shape or a.dtype != dtype:
-                            raise AssertionError(f"{name} output {i}: "
-                                                 f"{a.shape} {a.dtype}")
-                        if dtype == torch.float32:
-                            err = (a - b).abs().max().item()
-                            lim = 2e-3 * b.abs().max().item()
-                            ok, what = err <= lim, \
-                                f"max|d|={err:.3e} (limit {lim:.3e})"
-                            worst[name] = max(worst[name], err)
-                        else:
-                            snr = snr_db(b, a)
-                            ok, what = snr >= 30.0, \
-                                f"SNR={snr:.1f} dB (limit 30)"
-                        print(f"{name} B={B} {str(dtype)[6:]} output {i} "
-                              f"{tuple(a.shape)}: {what}")
-                        if not ok:
-                            raise AssertionError(
-                                f"{name} disagrees with its plain version")
+    output with its pad rows (fp32 max |d| <= 2e-3 max |ref|, bf16 SNR >=
+    30 dB), a rerun equal bit for bit, a graph replay equal to eager
+    (probes/uconv_halves.py). Returns each kernel's largest fp32 max |d|
+    and lowest bf16 SNR."""
+    worst = {n: 0.0 for n in uconv_halves.NAMES}
+    low = {n: float("inf") for n in uconv_halves.NAMES}
+    for B, dtype, T, depth in HALF_CASES:
+        for name, v in uconv_halves.check(B, dtype, seed=B, T0=T,
+                                          depth=depth).items():
+            if dtype == torch.float32:
+                worst[name] = max(worst[name], v)
+            else:
+                low[name] = min(low[name], v)
     torch.cuda.synchronize()
-    return worst
+    return worst, low
 
 
 def count_blocks(fn, n):
@@ -299,39 +268,23 @@ def drive_fused_path(gen):
     return launches
 
 
-def time_halves(gen):
-    """Each kernel against its plain version (B 1 and 4, fp32), then the
-    blocks' ms; returns each kernel's B=1 (kernel ms, plain ms), device
-    time from CUDA-graph replay."""
-    T, depth = UCONV["T"], UCONV["depth"]
-    Ts = scale_lengths(T, depth)
-    result = {}
+def time_halves():
+    """Each kernel alone against its plain version (B 1 and 4 fp32, B 24
+    bf16) with its device kernels per call and a per-launch profile
+    (probes/uconv_halves.py), then the blocks' ms and a profile of the
+    fused block at B 24 bf16. Returns {case: {name: row}}."""
+    cases = {}
     with torch.inference_mode():
-        for B in (1, 4):
-            block, x_raw, scales, g = half_inputs(B, torch.float32, gen,
-                                                  seed=B)
-            calls = {
-                "pyramid_fused": (
-                    lambda: pyramid_fused(x_raw, block, depth=depth, raw=True,
-                                          raw_in=True, T0=T),
-                    lambda: pyramid_fused_reference(
-                        x_raw, block, depth=depth, raw=True, raw_in=True,
-                        T0=T)),
-                "fuse_expand_fused": (
-                    lambda: fuse_expand_fused(scales, g, x_raw, block, Ts=Ts),
-                    lambda: fuse_expand_fused_reference(scales, g, x_raw,
-                                                        block, Ts=Ts))}
-            for name, (kern, plain) in calls.items():
-                kg, pg = graph_time(kern), graph_time(plain)
-                ke, pe = cuda_time(kern, reps=20), cuda_time(plain, reps=20)
-                flags = [f for t in (kg, pg, ke, pe) for f in t[2]]
-                print(f"{name} B={B} fp32, us per call, device (graph replay)"
-                      f" / eager: kernel {kg[0] * 1e3:.1f} / "
-                      f"{ke[0] * 1e3:.1f}, plain {pg[0] * 1e3:.1f} / "
-                      f"{pe[0] * 1e3:.1f}"
-                      + (f"; runs over 2x median: {flags}" if flags else ""))
-                if B == 1:
-                    result[name] = (kg[0], pg[0])
+        for B, dtype in uconv_halves.CASES:
+            cases[(B, dtype)] = uconv_halves.time_case(B, dtype)
+        # the profiler may drop events (a count a little below the true
+        # one); it never invents kernels
+        want = kernels_per_call(UCONV["depth"])
+        for name in uconv_halves.NAMES:
+            got = [r[name]["kernels"] for r in cases.values()]
+            if max(got) != want:
+                raise AssertionError(f"{name}: {got} device kernels per call"
+                                     f", expected {want}")
         for B, dtype in ((1, torch.float32), (24, torch.bfloat16)):
             block, x = uconv_kernel.setup(B, dtype)
             rows = {**hybrid.time_blocks(block, x),
@@ -339,38 +292,31 @@ def time_halves(gen):
             for name, (g_ms, e_ms) in rows.items():
                 print(f"{name} B={B} {str(dtype)[6:]}: {g_ms:.3f} ms/block "
                       f"CUDA graph, {e_ms:.3f} ms/block eager")
-        from torch.profiler import ProfilerActivity, profile
         x_raw = to_raw(x)
-        uconv_kernel.fused_block_raw(block, x_raw, T)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            uconv_kernel.fused_block_raw(block, x_raw, T)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None)
-                  == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(dev_us(e) for e in events) / 1e3
-        print(f"profiled fused block B=24 bf16: "
-              f"{sum(e.count for e in events)} device kernels, "
-              f"{dev_ms:.3f} ms device time")
-        for e in sorted(events, key=dev_us, reverse=True)[:10]:
-            print(f"  {dev_us(e) / 1e3:8.3f} ms {e.count:4d}x {e.key[:90]}")
+        kernels, rows, memsets = uconv_halves.profile_call(
+            lambda: uconv_kernel.fused_block_raw(block, x_raw, UCONV["T"]),
+            n=5)
+        print(f"profiled fused block B=24 bf16: {kernels:g} device kernels "
+              f"and {memsets:g} memsets, {sum(r[2] for r in rows) / 1e3:.3f}"
+              f" ms device time, per block")
+        for key, count, us in rows[:12]:
+            print(f"  {us / 1e3:8.3f} ms {count:5.2f}x {key[:90]}")
     torch.cuda.synchronize()
-    return result
+    return cases
 
 
 def params_bytes(*modules):
     return sum(nbytes(*m.parameters()) for m in modules)
 
 
-def uconv_bounds(gen, B, dtype):
+def uconv_bounds(B, dtype):
     """The card's bound for each UConvBlock half from this run's operands:
     every input and parameter read once, every output written once,
     against the operations of the 1x1 product (fp32 on the SIMT cores,
     bf16 on the tensor cores) and of the depthwise taps (fp32)."""
     T, Cout, depth = UCONV["T"], UCONV["Cout"], UCONV["depth"]
     Ts = scale_lengths(T, depth)
-    block, x_raw, scales, g = half_inputs(B, dtype, gen, seed=1)
+    block, x_raw, scales, g = uconv_halves.half_inputs(B, dtype, seed=1)
     with torch.inference_mode():
         got_s, got_g = pyramid_fused(x_raw, block, depth=depth, raw=True,
                                      raw_in=True, T0=T)
@@ -598,21 +544,24 @@ def time_windows_and_swin(gen, model, x):
 
 
 def count_hgmma():
-    """The wgmma (SASS: HGMMA) instructions in the built micro_ops library,
-    where the toolkit's ``cuobjdump`` is there to list them: the bf16
-    products must have reached the warpgroup instruction."""
+    """The wgmma (SASS: HGMMA) instructions in each built library whose bf16
+    products run on the tensor cores (the micro-kernels and both UConvBlock
+    halves), where the toolkit's ``cuobjdump`` is there to list them: none
+    may be 0."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         print("no cuobjdump on this machine: HGMMA not counted")
         return
-    so = _build.library_path("micro_ops")
-    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    n = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"HGMMA instructions in {os.path.relpath(so)}: {n}")
-    if n == 0:
-        raise AssertionError("the bf16 products did not reach wgmma")
+    for name in ("micro_ops", "uconv_pyramid", "uconv_fuse_expand"):
+        so = _build.library_path(name)
+        sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        n = sum("HGMMA" in line for line in sass.splitlines())
+        print(f"HGMMA instructions in {os.path.relpath(so)}: {n}")
+        if n == 0:
+            raise AssertionError(f"the bf16 products of {name} did not reach "
+                                 "wgmma")
 
 
 def drive_probes():
@@ -677,8 +626,8 @@ def main():
         print(f"  {os.path.relpath(so)}: nvcc {seconds:.2f} s")
         entry = spill = ""
         for line in report.splitlines():  # one line per kernel
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1][:90]
+            if "Compiling entry function" in line:  # the name's tail
+                entry = line.split("'")[1][-90:]
             elif "spill" in line:
                 spill = line.strip()
             elif "registers" in line and entry:
@@ -841,25 +790,39 @@ def main():
         "forward_profiled_ms": prof["dw_ms"]}]
 
     gen = torch.Generator().manual_seed(5)
-    phase("7 UConvBlock halves against plain (full width, every output)")
-    half_err = check_halves(gen)
+    phase("7 UConvBlock halves against plain (every output, reruns, graphs)")
+    half_err, half_snr = check_halves()
     phase("8 fused block path (launch counts from 0)")
     half_launches = drive_fused_path(gen)
     phase(f"9 times (CUDA events, median of 7 runs; card: {card})")
-    half_times = time_halves(gen)
-    half_bounds = uconv_bounds(gen, 1, torch.float32)
-    uconv_bounds(gen, 24, torch.bfloat16)
+    half_times = time_halves()
+    bounds = {(B, dtype): uconv_bounds(B, dtype)
+              for B, dtype in uconv_halves.CASES}
     for name, replaces in (("pyramid_fused", 521), ("fuse_expand_fused", 455)):
         src = "uconv_pyramid" if name == "pyramid_fused" else \
             "uconv_fuse_expand"
+        row = {k: r[name] for k, r in half_times.items()}
+        b1, b4 = (1, torch.float32), (4, torch.float32)
+        b24 = (24, torch.bfloat16)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tdanet_tpu_torch/csrc/{src}.cu",
             "replaces": f"tdanet_tpu/kernels/uconv_block.py:{replaces}",
             "launches": half_launches[name], "max_abs_err": half_err[name],
-            "ms": half_times[name][0], "plain_ms": half_times[name][1],
-            "bound_ms": half_bounds[name][0],
-            "bound_by": half_bounds[name][1], "library_ms": None})
+            "min_bf16_snr_db": half_snr[name],
+            "ms": row[b1]["us"] / 1e3, "plain_ms": row[b1]["plain_us"] / 1e3,
+            "bound_ms": bounds[b1][name][0], "bound_by": bounds[b1][name][1],
+            "library_ms": None,
+            "device_kernels_per_call": row[b1]["kernels"],
+            "memsets_per_call": row[b1]["memsets"],
+            "eager_ms": row[b1]["eager_us"] / 1e3,
+            "ms_b4_fp32": row[b4]["us"] / 1e3,
+            "plain_ms_b4_fp32": row[b4]["plain_us"] / 1e3,
+            "bound_ms_b4_fp32": bounds[b4][name][0],
+            "ms_b24_bf16": row[b24]["us"] / 1e3,
+            "plain_ms_b24_bf16": row[b24]["plain_us"] / 1e3,
+            "bound_ms_b24_bf16": bounds[b24][name][0],
+            "bound_by_b24_bf16": bounds[b24][name][1]})
     torch.cuda.synchronize()
 
     gen = torch.Generator().manual_seed(10)

@@ -308,6 +308,30 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kAccRegs],
       : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
 }
 
+// The same with a 128-column b (64 accumulators a thread).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[kAccRegs / 2],
+                                                 uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}"
+      : HG_ACC32(d, 0), HG_ACC32(d, 32)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+}
+
 #undef HG_ACC32
 #undef HG_ACC8
 
@@ -370,6 +394,61 @@ __device__ __forceinline__ void store_acc_bf16(const float (&d)[kAccRegs],
       if (r < rows && c < cols)
         *reinterpret_cast<uint4*>(out + r * ld + c) =
             make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The same transpose in fp32 for a 64 x kN warpgroup product, for epilogues
+// that add and test before they round: fn(r, c, v) for every 8 neighbouring
+// columns of a row that this lane holds after it, r the row within the
+// warpgroup's 64 and c the first
+// column (a multiple of 8), v the 8 fp32 accumulators. Every lane of a
+// quad calls fn once per row and group of four 8-column blocks.
+template <int kN = kAccN, typename Fn>
+__device__ __forceinline__ void for_each_acc8(const float (&d)[kN / 2],
+                                              Fn fn) {
+  const int t = threadIdx.x % kWarpgroup;
+  const int lane = t % 32, q = lane % 4;
+  const int r0 = 16 * (t / 32) + lane / 4;
+  const bool odd = q & 1, high = q & 2;
+  auto shfl2 = [](float2 v, int m) {
+    return make_float2(__shfl_xor_sync(0xffffffffu, v.x, m),
+                       __shfl_xor_sync(0xffffffffu, v.y, m));
+  };
+#pragma unroll
+  for (int j0 = 0; j0 < kN / 8; j0 += 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = make_float2(d[4 * (j0 + i) + 2 * h], d[4 * (j0 + i) + 2 * h + 1]);
+      // round 1, lanes q ^ 1: exchange the odd blocks for the even ones
+      float2 s0 = odd ? v[0] : v[1], s1 = odd ? v[2] : v[3];
+      s0 = shfl2(s0, 1);
+      s1 = shfl2(s1, 1);
+      if (odd) {
+        v[0] = s0;
+        v[2] = s1;
+      } else {
+        v[1] = s0;
+        v[3] = s1;
+      }
+      // round 2, lanes q ^ 2: exchange the upper pair for the lower pair
+      s0 = high ? v[0] : v[2];
+      s1 = high ? v[1] : v[3];
+      s0 = shfl2(s0, 2);
+      s1 = shfl2(s1, 2);
+      if (high) {
+        v[0] = s0;
+        v[1] = s1;
+      } else {
+        v[2] = s0;
+        v[3] = s1;
+      }
+      float w[8] = {v[0].x, v[0].y, v[1].x, v[1].y,
+                    v[2].x, v[2].y, v[3].x, v[3].y};
+      fn(r0 + 8 * h, 8 * (j0 + q), w);
     }
   }
 }

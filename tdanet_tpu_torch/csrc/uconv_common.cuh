@@ -3,38 +3,41 @@
 //
 // Layout. A scale of true length T lives in a padded channels-last buffer
 // (B, padded_rows(T), C): true row t at buffer row kPad + t, zero rows
-// around it. The kernels hand a buffer around as a pointer to its first
-// true row, so a k5 tap at row t - 2 reads a zero pad row and needs no
-// bounds test.
+// around it. A k5 tap at row t - 2 of a true row reads a zero pad row and
+// needs no bounds test. Channel counts are multiples of 64 (the wrappers
+// check it), so a thread moves 16-byte vectors along C: 4 fp32 or 8 bf16
+// channels.
 //
-// GlobLN. Every stage normalises over a sample's whole (T, C), which is
-// megabytes: many CTAs share a sample. A stage is therefore two launches
-// on one stream: a statistics pass, where each CTA writes its tile's
-// (count, mean, M2), and a pass that merges the sample's tiles in one fixed
-// order (Chan's pairwise update) and applies the affine. No atomics, so
-// the result is deterministic. The stage's raw values are recomputed in
-// the second pass rather than stored: five taps re-read from L1/L2 cost
-// fewer bytes than an fp32 store and load of the raw conv.
+// GlobLN. Every ConvNorm normalises over a sample's whole (T, C), which is
+// megabytes, so many CTAs share a sample. A launch that computes a
+// ConvNorm's values writes one (count, mean, M2) part per CTA; the CTA that
+// finishes last for a sample (elected by one counter) merges the sample's
+// parts in index order and writes the sample's (mean, rstd), which every
+// later pass reads as two floats. The counter only elects: the merge order
+// is fixed by the part index, so the result is the same bit for bit from
+// run to run.
 //
-// Conv-family CTAs: kCh threads, one channel each (neighbouring threads on
-// neighbouring addresses along C), kRows output rows each.
+// Passes. A pass normalises one ConvNorm over a tile of 128 rows and one
+// 64-channel band, and in the same launch computes the statistics of the
+// next k5 ConvNorm over the values it has just made: it stages the input
+// rows it reads in shared memory (cp.async, no registers), makes its values
+// on the tile's rows plus the two-row halo each side that the next taps
+// read, keeps them in shared memory, runs the next taps there, and stores
+// its own rows. A thread computes 4 channels. The launch boundary is the
+// only barrier; no conv output is stored raw.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace uconv {
 
 constexpr int kPad = 8;
-constexpr int kCh = 128;
-constexpr int kRows = 32;
 constexpr int kMaxDepth = 8;
 // Longest input: the resize and pool index products (t * T_other, at most
 // T0 * T0 / 2) stay in 32 bits, whose division is far cheaper than 64.
 constexpr int kMaxT = 65535;
-constexpr int kMaxJobs = 3 * kMaxDepth;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int padded_rows(int T) {
@@ -47,13 +50,95 @@ inline void scale_lengths(int T0, int depth, int* Ts) {
   for (int s = 1; s < depth; ++s) Ts[s] = (Ts[s - 1] + 1) / 2;
 }
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// ---------------------------------------------------------------------------
+// Tiles of the conv-family passes
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;  // a conv-family CTA
+constexpr int kBand = 64;      // channels of a tile
+constexpr int kHalo = 2;       // rows each side that the next k5 taps read
+constexpr int kV = 4;          // channels a thread computes
+constexpr int kLanes = kBand / kV, kGroups = kThreads / kLanes;
+
+// A tile of R rows over the padded rows of a scale: padded rows
+// [R i, R i + R), true rows from r0 = R i - kPad (even).
+__host__ __device__ inline int row_tiles(int T, int R) {
+  return cdiv(padded_rows(T), R);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+
+// 4 channels: 16 bytes of fp32, 8 of bf16 (global or shared memory).
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&v)[4]) {
+  uint2 q;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+  h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+
+// 16 bytes of channels, 4 fp32 or 8 bf16 (the products' epilogues).
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[4]) {
+  st4(p, v);
+}
+__device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 q;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = q;
+}
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[4]) {
+  ld4(p, v);
+}
+__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p,
+                                       float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+// V fp32 values (parameters) at p, 16-byte aligned.
+template <int V>
+__device__ __forceinline__ void ld_f32(const float* p, float (&v)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + i);
+    v[i] = q.x;
+    v[i + 1] = q.y;
+    v[i + 2] = q.z;
+    v[i + 3] = q.w;
+  }
+}
+
+// The value the storage type keeps: what the next pass will read back.
+template <typename T>
+__device__ __forceinline__ float keep(float v) {
+  if constexpr (sizeof(T) == 2)
+    return __bfloat162float(__float2bfloat16(v));
+  else
+    return v;
 }
 
 // The hardware exp2-based exponential and an approximate divide: a few
@@ -63,13 +148,22 @@ __device__ __forceinline__ float sigmoid(float z) {
   return __fdividef(1.f, 1.f + __expf(-z));
 }
 
-// Sum over a CTA of NT threads in a fixed order; every thread gets it.
-template <int NT>
-__device__ float block_sum(float v, float* red) {
+// ---------------------------------------------------------------------------
+// Reductions in a fixed order
+// ---------------------------------------------------------------------------
+
+struct CtaSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// Sum over a CTA (or the NT threads that share sync) in a fixed order;
+// every thread gets it. red: NT / 32 floats of shared memory.
+template <int NT, typename Sync = CtaSync>
+__device__ float block_sum(float v, float* red, Sync sync = Sync{}) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
+  sync();  // red may still be read by a previous call
+  if ((threadIdx.x & 31) == 0) red[(threadIdx.x % NT) >> 5] = v;
+  sync();
   float t = 0.f;
   for (int i = 0; i < NT / 32; ++i) t += red[i];
   return t;
@@ -92,371 +186,182 @@ __device__ __forceinline__ void merge(float& na, float& ma, float& m2a,
   na = n;
 }
 
-// A tile's (count, mean, M2) from its threads' values (count n over the
-// CTA), written by thread 0 to p.
-template <int NT, int NV>
-__device__ void tile_stats(const float (&vals)[NV], const bool (&valid)[NV],
-                           float n, float* red, float* p) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) s += valid[i] ? vals[i] : 0.f;
-  const float mean = block_sum<NT>(s, red) / n;
-  float m2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const float d = vals[i] - mean;
-    m2 += valid[i] ? d * d : 0.f;
-  }
-  m2 = block_sum<NT>(m2, red);
-  if (threadIdx.x == 0) {
-    p[0] = n;
-    p[1] = mean;
-    p[2] = m2;
-  }
-}
-
-// Merge a sample's n tile partials (n, 3) in a fixed order: thread i takes
-// tiles i, i + NT, ...; then a tree. s: 3 * NT floats of shared memory.
-// Every thread gets the mean and 1/sqrt(var + eps).
+// Shared memory of a CTA's reductions.
 template <int NT>
-__device__ void merge_partials(const float* __restrict__ p, int n, float eps,
-                               float* s, float& mean, float& rstd) {
+struct StatSmem {
+  float red[2 * (NT / 32)];
+};
+
+// Two sums over the NT threads that share sync, in a fixed order (an xor
+// butterfly in each warp, then the warps in order); every thread gets them.
+template <int NT, typename Sync = CtaSync>
+__device__ void block_sum2(float& u, float& v, float* red,
+                           Sync sync = Sync{}) {
+  for (int o = 16; o > 0; o >>= 1) {
+    u += __shfl_xor_sync(0xffffffffu, u, o);
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  }
+  sync();  // red may still be read by a previous call
+  const int w = (threadIdx.x % NT) >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[w] = u;
+    red[NT / 32 + w] = v;
+  }
+  sync();
+  u = red[0];
+  v = red[NT / 32];
+  for (int i = 1; i < NT / 32; ++i) {
+    u += red[i];
+    v += red[NT / 32 + i];
+  }
+}
+
+// A tile's (count, mean, M2) from sums about a value of the tile's data,
+// y0 (the same in every thread): s1 = sum(y - y0), s2 = sum((y - y0)^2)
+// over its n valid values. One reduction; since y0 is a value of the data,
+// no precision goes to a large common offset. Thread 0 writes p[0..2].
+template <int NT, typename Sync = CtaSync>
+__device__ void tile_part(float s1, float s2, float y0, float n,
+                          StatSmem<NT>& sm, float* p, Sync sync = Sync{}) {
+  block_sum2<NT>(s1, s2, sm.red, sync);
+  if (threadIdx.x % NT == 0) {
+    const float d = n > 0.f ? s1 / n : 0.f;
+    p[0] = n;
+    p[1] = y0 + d;
+    p[2] = fmaxf(s2 - s1 * d, 0.f);
+  }
+}
+
+// One arrival at a counter, with release and acquire semantics at the
+// card's scope: the part this thread wrote before is visible to the CTA
+// that sees the last ticket. Cheaper than __threadfence() (fence.sc),
+// which also waits for every earlier store of the thread.
+__device__ __forceinline__ unsigned arrive(unsigned* counter) {
+  unsigned ticket;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(ticket)
+               : "l"(counter)
+               : "memory");
+  return ticket;
+}
+__device__ __forceinline__ void acquire() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// After tile_part: the CTA that arrives last among a sample's n parts
+// merges them in index order (lane i of warp 0 takes parts i, i + 32, ...;
+// then a shuffle tree) and writes the sample's (mean, 1/sqrt(var + eps))
+// to out, and puts the counter back to 0. The counter only elects; it
+// orders nothing. Only warp 0 takes part; the other threads go on.
+__device__ __forceinline__ void finish(const float* part, int n,
+                                       unsigned* counter, float2* out,
+                                       float eps) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  unsigned last = 0;
+  if (lane == 0) last = arrive(counter) == static_cast<unsigned>(n - 1);
+  last = __shfl_sync(0xffffffffu, last, 0);
+  if (!last) return;
+  acquire();
   float cn = 0.f, cm = 0.f, cq = 0.f;
-  for (int i = threadIdx.x; i < n; i += NT)
-    merge(cn, cm, cq, p[3 * i], p[3 * i + 1], p[3 * i + 2]);
-  __syncthreads();  // s may still be read by a previous call
-  s[threadIdx.x] = cn;
-  s[NT + threadIdx.x] = cm;
-  s[2 * NT + threadIdx.x] = cq;
-  __syncthreads();
-  for (int h = NT / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) {
-      float na = s[threadIdx.x], ma = s[NT + threadIdx.x],
-            qa = s[2 * NT + threadIdx.x];
-      merge(na, ma, qa, s[threadIdx.x + h], s[NT + threadIdx.x + h],
-            s[2 * NT + threadIdx.x + h]);
-      s[threadIdx.x] = na;
-      s[NT + threadIdx.x] = ma;
-      s[2 * NT + threadIdx.x] = qa;
-    }
-    __syncthreads();
+  for (int i = lane; i < n; i += 32)
+    merge(cn, cm, cq, __ldcg(part + 3 * i), __ldcg(part + 3 * i + 1),
+          __ldcg(part + 3 * i + 2));
+  for (int h = 16; h > 0; h >>= 1) {
+    const float nb = __shfl_down_sync(0xffffffffu, cn, h);
+    const float mb = __shfl_down_sync(0xffffffffu, cm, h);
+    const float qb = __shfl_down_sync(0xffffffffu, cq, h);
+    merge(cn, cm, cq, nb, mb, qb);
   }
-  mean = s[NT];
-  rstd = rsqrtf(s[2 * NT] / s[0] + eps);
+  if (lane == 0) {
+    *out = make_float2(cm, rsqrtf(cq / cn + eps));
+    *counter = 0u;
+  }
+}
+
+// A pass's own rows (rows kHalo .. kHalo + R - 1 of its values in shared
+// memory, vals[row][kBand]) to the padded scale at out (this thread's
+// channels, row 0 of the sample), rows below rows_out; after the pass's
+// statistics, so that no store is pending when it arrives at a counter.
+template <int R, typename T>
+__device__ __forceinline__ void store_rows(const T* vals, T* out, int r0,
+                                           int rows_out, int C) {
+  const int cl = (threadIdx.x % kLanes) * kV;
+  for (int j = threadIdx.x / kLanes; j < R; j += kGroups) {
+    const int row = r0 + j + kPad;  // padded row of value row j + kHalo
+    if (row >= rows_out) break;
+    float v[kV];
+    ld4(vals + (j + kHalo) * kBand + cl, v);
+    st4(out + (long long)row * C, v);
+  }
+}
+
+// 16 bytes from global to shared memory without registers; zeros where
+// !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
-// Depthwise conv statistics: one launch runs up to kMaxJobs independent
-// (input, taps, length) jobs, each over all B samples.
+// Scratch: the parts, the per-sample statistics and the counters, laid out
+// by one walk that the size query and the launch share.
 // ---------------------------------------------------------------------------
 
-struct ConvJob {
-  const void* x;         // first true input row; element (b, r, c) at
-  long long sb, st, sc;  // x + b*sb + r*st + c*sc, r may reach -(K-1)/2
-  const float* w;        // (C, K) taps
-  const float* bias;     // (C,) or null
-  float* partials;       // (B, tiles, 3)
-  int T_out, K, stride;  // all jobs of one launch share K
+// A ConvNorm's statistics: parts (B, n, 3), the result (B,) of (mean,
+// rstd), counters (B,).
+struct Norm {
+  float* part;
+  float2* stats;
+  unsigned* count;
+  int n;  // parts per sample
 };
 
-struct ConvJobs {
-  ConvJob j[kMaxJobs];
-  int n;
+// The floats (parts and results) come first, the counters after all of
+// them, so that one memset clears every counter. A walk with a null base
+// only counts.
+struct Scratch {
+  float* base;
+  unsigned* counter_base;
+  int B;
+  long long floats = 0;
+  long long counters = 0;
+
+  Norm take(int n) {
+    Norm m{};
+    m.n = n;
+    const long long part = floats;
+    floats += 3LL * B * n;
+    floats += floats & 1;  // float2 alignment
+    const long long st = floats;
+    floats += 2LL * B;
+    if (base != nullptr) {
+      m.part = base + part;
+      m.stats = reinterpret_cast<float2*>(base + st);
+      m.count = counter_base + counters;
+    }
+    counters += B;
+    return m;
+  }
+  long long total() const { return floats + counters; }
 };
 
-__host__ __device__ inline int conv_tiles(int T_out, int C) {
-  return cdiv(T_out, kRows) * cdiv(C, kCh);
-}
-
-// A K-tap conv at output row t of channel c. Callers clamp t and c into
-// range and mask the value afterwards, so no load sits behind a branch and
-// a thread's loads for all its rows can be in flight together (a thread
-// walking its rows one dependent load at a time is latency-bound).
-template <int K, typename T>
-__device__ __forceinline__ float conv_at(const T* __restrict__ xs,
-                                         const ConvJob& j,
-                                         const float (&w)[K], int t, int c) {
-  const T* p = xs + (long long)(t * j.stride - (K - 1) / 2) * j.st +
-               (long long)c * j.sc;
-  float acc = 0.f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc = fmaf(ld(p + k * j.st), w[k], acc);
-  return acc;
-}
-
-template <int K>
-__device__ __forceinline__ void load_taps(const float* __restrict__ w, int c,
-                                          float (&out)[K]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) out[k] = w[c * K + k];
-}
-
-// grid (row tiles of the longest job, channel tiles, B * jobs.n)
-template <typename T, int K>
-__global__ void __launch_bounds__(kCh)
-conv_stats_kernel(const __grid_constant__ ConvJobs jobs, int C) {
-  __shared__ float red[kCh / 32];
-  const ConvJob& j = jobs.j[blockIdx.z % jobs.n];
-  const int b = blockIdx.z / jobs.n;
-  const int n_t = cdiv(j.T_out, kRows);
-  if (static_cast<int>(blockIdx.x) >= n_t) return;  // uniform in the CTA
-  const int t0 = blockIdx.x * kRows;
-  const int c = blockIdx.y * kCh + threadIdx.x;
-  const bool cv = c < C;
-  const int cc = cv ? c : C - 1;
-  float w[K];
-  load_taps<K>(j.w, cc, w);
-  const float bias = j.bias != nullptr ? j.bias[cc] : 0.f;
-  const T* xs = static_cast<const T*>(j.x) + b * j.sb;
-  float vals[kRows];
-  bool valid[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    valid[r] = cv && t0 + r < j.T_out;
-    vals[r] = conv_at<K>(xs, j, w, min(t0 + r, j.T_out - 1), cc) + bias;
-  }
-  const float n = static_cast<float>(min(kRows, j.T_out - t0) *
-                                     min(kCh, C - static_cast<int>(
-                                                      blockIdx.y) * kCh));
-  float* p = j.partials +
-             3 * ((long long)b * n_t * gridDim.y + blockIdx.x * gridDim.y +
-                  blockIdx.y);
-  tile_stats<kCh>(vals, valid, n, red, p);
-}
-
-// K is 1 or 5 and the same for every job.
-inline cudaError_t launch_conv_stats(const ConvJobs& jobs, int B, int C,
-                                     bool bf16, cudaStream_t s) {
-  int max_t = 1;
-  for (int i = 0; i < jobs.n; ++i) {
-    if (jobs.j[i].K != jobs.j[0].K) return cudaErrorInvalidValue;
-    const int n_t = cdiv(jobs.j[i].T_out, kRows);
-    max_t = n_t > max_t ? n_t : max_t;
-  }
-  const dim3 grid(max_t, cdiv(C, kCh), B * jobs.n);
-  const int K = jobs.j[0].K;
-  if (K == 5 && bf16)
-    conv_stats_kernel<__nv_bfloat16, 5><<<grid, kCh, 0, s>>>(jobs, C);
-  else if (K == 5)
-    conv_stats_kernel<float, 5><<<grid, kCh, 0, s>>>(jobs, C);
-  else if (K == 1 && bf16)
-    conv_stats_kernel<__nv_bfloat16, 1><<<grid, kCh, 0, s>>>(jobs, C);
-  else if (K == 1)
-    conv_stats_kernel<float, 1><<<grid, kCh, 0, s>>>(jobs, C);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// 1x1 convolution as a batched product C[b, m, n] = sum_k A[b, m, k] W[n, k]
-// (W is the conv weight (N, K, 1)). fp32: 64 x 64 output tiles, 16-deep k
-// slices staged in shared memory, fp32 accumulation, 4 x 4 outputs per
-// thread at rows ty + 16 i and columns tx + 16 j (conflict-free reads,
-// coalesced writes).
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 64, kBN = 64, kBK = 16, kGemmThreads = 256;
-
-struct Gemm {
-  const void* a;          // element (b, m, k) at a + b*ab + m*am + k*ak
-  long long ab, am, ak;
-  const float* w;         // (N, K) row-major
-  const float* bias;      // (N,)
-  int M, N, K;
-  float* y;               // proj: raw fp32 (B, M, N)
-  float* partials;        // proj: (B, tiles, 3) of the raw values
-  const void* resid;      // res: (B, M, N), storage type
-  void* out;              // res: (B, M, N), storage type
-  int lo, hi;             // res: rows [lo, hi) hold data, the rest is zero
-};
-
-// kProj: bias, raw fp32 store and tile statistics; else bias + residual
-// into the storage type, rows outside [lo, hi) zero.
-template <bool kProj>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const __grid_constant__ Gemm g) {
-  using T = float;
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Ws[kBK][kBN + 4];
-  __shared__ float red[kGemmThreads / 32];
-  const int b = blockIdx.z, m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* A = static_cast<const T*>(g.a) + b * g.ab;
-  const bool m_contig = g.am == 1;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < g.K; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kGemmThreads) {
-      const int m = m_contig ? e % kBM : e / kBK;
-      const int k = m_contig ? e / kBM : e % kBK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < g.M && gk < g.K)
-                     ? ld(A + (long long)gm * g.am + (long long)gk * g.ak)
-                     : 0.f;
-    }
-    for (int e = tid; e < kBN * kBK; e += kGemmThreads) {
-      const int n = e / kBK, k = e % kBK;
-      const int gn = n0 + n, gk = k0 + k;
-      Ws[k][n] = (gn < g.N && gk < g.K) ? g.w[(long long)gn * g.K + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float vals[16];
-  bool valid[16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      const bool ok = m < g.M && n < g.N;
-      const long long off = ((long long)b * g.M + m) * g.N + n;
-      float v = ok ? acc[i][j] + g.bias[n] : 0.f;
-      if (kProj) {
-        if (ok) g.y[off] = v;
-      } else if (ok) {
-        v = (m >= g.lo && m < g.hi)
-                ? v + ld(static_cast<const T*>(g.resid) + off)
-                : 0.f;
-        store(static_cast<T*>(g.out) + off, v);
-      }
-      vals[4 * i + j] = v;
-      valid[4 * i + j] = ok;
-    }
-  if (kProj) {
-    const float n = static_cast<float>(min(kBM, g.M - m0) * min(kBN, g.N - n0));
-    float* p = g.partials + 3 * ((long long)b * gridDim.x * gridDim.y +
-                                 blockIdx.x * gridDim.y + blockIdx.y);
-    tile_stats<kGemmThreads>(vals, valid, n, red, p);
-  }
-}
-
-__host__ inline int gemm_tiles(int M, int N) {
-  return cdiv(M, kBM) * cdiv(N, kBN);
-}
-
-// The bf16 product on the tensor cores (warp-level wmma, 16 x 16 x 16 bf16
-// fragments, fp32 accumulation): 64 x 64 output tiles, 32-deep k slices in
-// shared memory, four warps of 32 x 32 each. The fp32 weights are rounded
-// to bf16 as they are staged, as the module's bf16 path casts them. The
-// accumulators go through shared memory to the same epilogues.
-constexpr int kWK = 32, kWThreads = 128;
-
-template <bool kProj>
-__global__ void __launch_bounds__(kWThreads)
-gemm_bf16_kernel(const __grid_constant__ Gemm g) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[kBM][kWK + 8];
-  __shared__ __align__(32) __nv_bfloat16 Ws[kBN][kWK + 8];
-  __shared__ __align__(32) float Cs[kBM][kBN + 4];
-  __shared__ float red[kWThreads / 32];
-  const int b = blockIdx.z, m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x, wm = tid / 64, wn = (tid / 32) % 2;
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(g.a) + b * g.ab;
-  const bool m_contig = g.am == 1;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int k0 = 0; k0 < g.K; k0 += kWK) {
-    for (int e = tid; e < kBM * kWK; e += kWThreads) {
-      const int m = m_contig ? e % kBM : e / kWK;
-      const int k = m_contig ? e / kBM : e % kWK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[m][k] = (gm < g.M && gk < g.K)
-                     ? A[(long long)gm * g.am + (long long)gk * g.ak]
-                     : __float2bfloat16(0.f);
-    }
-    for (int e = tid; e < kBN * kWK; e += kWThreads) {
-      const int n = e / kWK, k = e % kWK;
-      const int gn = n0 + n, gk = k0 + k;
-      Ws[n][k] = __float2bfloat16(
-          (gn < g.N && gk < g.K) ? g.w[(long long)gn * g.K + gk] : 0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[wm * 32 + i * 16][kk], kWK + 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Ws[wn * 32 + j * 16][kk], kWK + 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16],
-                              acc[i][j], kBN + 4, wmma::mem_row_major);
-  __syncthreads();
-
-  constexpr int kPer = kBM * kBN / kWThreads;  // 32 rows of one column
-  float vals[kPer];
-  bool valid[kPer];
-  const int nl = tid % kBN, n = n0 + nl;
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int ml = tid / kBN + r * (kWThreads / kBN), m = m0 + ml;
-    const bool ok = m < g.M && n < g.N;
-    const long long off = ((long long)b * g.M + m) * g.N + n;
-    float v = ok ? Cs[ml][nl] + g.bias[n] : 0.f;
-    if (kProj) {
-      if (ok) g.y[off] = v;
-    } else if (ok) {
-      v = (m >= g.lo && m < g.hi)
-              ? v + ld(static_cast<const __nv_bfloat16*>(g.resid) + off)
-              : 0.f;
-      store(static_cast<__nv_bfloat16*>(g.out) + off, v);
-    }
-    vals[r] = v;
-    valid[r] = ok;
-  }
-  if (kProj) {
-    const float cnt =
-        static_cast<float>(min(kBM, g.M - m0) * min(kBN, g.N - n0));
-    float* p = g.partials + 3 * ((long long)b * gridDim.x * gridDim.y +
-                                 blockIdx.x * gridDim.y + blockIdx.y);
-    tile_stats<kWThreads>(vals, valid, cnt, red, p);
-  }
-}
-
-// fp32 on the SIMT cores (TF32 would change the numbers), bf16 on the
-// tensor cores; the same tiles, so the same partial-statistics layout.
-template <bool kProj>
-inline cudaError_t launch_gemm(const Gemm& g, int B, bool bf16,
-                               cudaStream_t s) {
-  const dim3 grid(cdiv(g.M, kBM), cdiv(g.N, kBN), B);
-  if (bf16)
-    gemm_bf16_kernel<kProj><<<grid, kWThreads, 0, s>>>(g);
-  else
-    gemm_kernel<kProj><<<grid, kGemmThreads, 0, s>>>(g);
-  return cudaGetLastError();
+// Runs walk(Scratch&) once to count and once on the buffer of total()
+// floats at base (16-byte aligned); clears the counters on the stream.
+template <typename Walk>
+cudaError_t lay_out(float* base, int B, cudaStream_t s, Walk walk) {
+  Scratch count{nullptr, nullptr, B};
+  walk(count);
+  Scratch real{base, reinterpret_cast<unsigned*>(base + count.floats), B};
+  walk(real);
+  return cudaMemsetAsync(real.counter_base, 0,
+                         sizeof(unsigned) * count.counters, s);
 }
 
 }  // namespace uconv

@@ -21,7 +21,11 @@ public functions take the port's ``UConvBlock`` module in place of the
 JAX parameter tree; its ``state_dict`` keys are the JAX flat keys.
 
 On a CUDA tensor a wrapper launches its kernel or raises. On a CPU tensor,
-and only there, it computes the plain version.
+and only there, it computes the plain version. The CUDA kernels take
+channel counts that are multiples of 64 and operands on 16-byte
+boundaries; the wrappers raise on the rest. Each block keeps its
+parameters packed as the kernels read them (:func:`weight_pack`), rebuilt
+only when a parameter changes.
 """
 
 from __future__ import annotations
@@ -30,9 +34,10 @@ import ctypes
 from functools import lru_cache
 
 import torch
+import torch.nn.functional as F
 
 from tdanet_tpu_torch.kernels import _build
-from tdanet_tpu_torch.kernels.dw_conv_glob_ln import _STORAGE, _as_f32
+from tdanet_tpu_torch.kernels.dw_conv_glob_ln import _STORAGE
 from tdanet_tpu_torch.ops import basic as ops
 
 PAD = 8  # zero rows before and after each scale's true rows
@@ -82,33 +87,99 @@ def from_raw(x_raw, T):
 
 
 # ---------------------------------------------------------------------------
-# Weight packing: the module's parameters in the order the C entry points
-# read them (counterparts of _pyramid_weight_arrays, _fusion_weight_arrays)
+# Weight packing: the module's parameters in the layout the C entry points
+# read (the Params structs of csrc/uconv_pyramid.cu, uconv_fuse_expand.cu):
+# one fp32 pack of the small parameters, depthwise taps tap-major (5, C),
+# and the 1x1 product's weight transposed to (K, N) in the storage type.
 # ---------------------------------------------------------------------------
 
 
-def _pyramid_weights(block, device):
-    """proj_1x1 (weight (C, Cin, 1), bias, gamma, beta, PReLU slope), then
-    per stage (taps (C, 1, 5), bias, gamma, beta), all fp32 on ``device``."""
+def _taps(conv):
+    """A depthwise conv weight (C, 1, K) as (K, C)."""
+    return conv.weight[:, 0, :].t()
+
+
+def _pyramid_pack(block):
+    """proj_1x1 (bias, gamma, beta, PReLU slope padded to 4), then per stage
+    (taps (5, C), bias, gamma, beta); the proj weight as (Cin, C)."""
     pj = block.proj_1x1
-    prm = [pj.conv.weight, pj.conv.bias, pj.norm.gamma, pj.norm.beta,
-           pj.act.weight]
+    prm = [pj.conv.bias, pj.norm.gamma, pj.norm.beta,
+           F.pad(pj.act.weight.reshape(-1), (0, 3))]
     for st in block.spp_dw:
-        prm += [st.conv.weight, st.conv.bias, st.norm.gamma, st.norm.beta]
-    return [_as_f32(p, device) for p in prm]
+        prm += [_taps(st.conv), st.conv.bias, st.norm.gamma, st.norm.beta]
+    return prm, pj.conv.weight[:, :, 0].t()
 
 
-def _fusion_weights(block, device):
-    """Per scale the LA fusion's three k1 ConvNorms (local, global_act,
-    global_embedding: weight, gamma, beta), per expansion pair the same
-    three as k5 ConvNorms, then res_conv (weight (Cout, C, 1), bias), all
-    fp32 on ``device``."""
+def _fusion_pack(block):
+    """Per fusion LA the local, global_act and global_embedding k1
+    ConvNorms (weight, gamma, beta), per expansion pair the same three k5
+    ConvNorms (taps (5, C), gamma, beta), then res_conv's bias; res_conv's
+    weight as (C, Cout)."""
     prm = []
-    for la in list(block.loc_glo_fus) + list(block.last_layer):
+    for la in block.loc_glo_fus:
         for cn in (la.local_embedding, la.global_act, la.global_embedding):
             prm += [cn.conv.weight, cn.norm.gamma, cn.norm.beta]
-    prm += [block.res_conv.weight, block.res_conv.bias]
-    return [_as_f32(p, device) for p in prm]
+    for la in block.last_layer:
+        for cn in (la.local_embedding, la.global_act, la.global_embedding):
+            prm += [_taps(cn.conv), cn.norm.gamma, cn.norm.beta]
+    prm.append(block.res_conv.bias)
+    return prm, block.res_conv.weight[:, :, 0].t()
+
+
+_PACKERS = {"pyramid": (_pyramid_pack, lambda b: [
+                b.proj_1x1.conv.weight, b.proj_1x1.conv.bias,
+                b.proj_1x1.norm.gamma, b.proj_1x1.norm.beta,
+                b.proj_1x1.act.weight, *b.spp_dw.parameters()]),
+            "fusion": (_fusion_pack, lambda b: [
+                *b.loc_glo_fus.parameters(), *b.last_layer.parameters(),
+                *b.res_conv.parameters()])}
+
+
+def _version(t):
+    """A tensor's version counter; inference tensors keep none (-1): their
+    pack is keyed on the address alone."""
+    return -1 if t.is_inference() else t._version
+
+
+class _Pack:
+    """A block half's parameters as its kernel reads them, and the source
+    tensors they were made from (held, so no address is reused while the
+    pack lives)."""
+
+    def __init__(self, kind, block, dtype, device):
+        pack, params = _PACKERS[kind]
+        self.kind = kind
+        self.sources = [p.detach() for p in params(block)]
+        self.versions = [_version(p) for p in self.sources]
+        self.dtype, self.device = dtype, device
+        with torch.no_grad():
+            small, wt = pack(block)
+            self.prm = torch.cat([p.detach().reshape(-1).to(device,
+                                                             torch.float32)
+                                  for p in small])
+            self.wt = wt.detach().to(device, dtype).contiguous()
+        self.prm_ptr, self.wt_ptr = self.prm.data_ptr(), self.wt.data_ptr()
+
+    def current(self, block, dtype, device):
+        """Whether the pack still holds the block's parameters: the same
+        tensors (address) at the same version (no in-place update since)."""
+        _, params = _PACKERS[self.kind]
+        ps = params(block)
+        return (dtype == self.dtype and device == self.device
+                and len(ps) == len(self.sources)
+                and all(p.data_ptr() == s.data_ptr() and _version(p) == v
+                        for p, s, v in zip(ps, self.sources, self.versions)))
+
+
+def weight_pack(kind, block, dtype, device):
+    """The block's pack for one half ("pyramid" or "fusion"), made once and
+    reused while its parameters are unchanged (keyed on each tensor's
+    address and version: an in-place update or a ``.to()`` rebuilds it)."""
+    packs = block.__dict__.setdefault("_kernel_packs", {})
+    pack = packs.get(kind)
+    if pack is None or not pack.current(block, dtype, device):
+        pack = packs[kind] = _Pack(kind, block, dtype, device)
+    return pack
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +257,12 @@ def fuse_expand_fused_reference(scales_raw, g_raw, x_raw, block, *, Ts):
 
 
 _MAX_T = 65535  # kMaxT of csrc/uconv_common.cuh: 32-bit index products
+def kernels_per_call(depth):
+    """Device kernels one call of either half launches, after one memset:
+    the product and depth + 1 passes (uconv_pyramid.cu); the k1
+    statistics, the fusion, depth - 1 expansion pairs and res_conv
+    (uconv_fuse_expand.cu)."""
+    return depth + 2
 
 
 def _check_launch(name, tensors, block, T0):
@@ -204,6 +281,41 @@ def _check_launch(name, tensors, block, T0):
                            "torch.inference_mode() or no_grad()")
 
 
+_MMA_W_BYTES = 128 * 1024  # kMmaWBytes of csrc/uconv_gemm.cuh
+
+
+def check_product(name, K, N):
+    """The bf16 1x1 products keep the whole (K, N) weight in one SM's
+    shared memory and multiply 128 or 256 columns at a time
+    (``mma_fits`` of csrc/uconv_gemm.cuh). Raises ValueError."""
+    n = 256 if N >= 256 else 128
+    if (N >= 256 and N % 256) or -(-N // n) * n * K * 2 > _MMA_W_BYTES:
+        raise ValueError(f"{name}: the bf16 tensor-core product takes N "
+                         f"below 256 or a multiple of 256 and a weight of "
+                         f"at most {_MMA_W_BYTES} bytes; got K={K}, N={N}")
+
+
+def check_kernel_operands(name, channels, aligned=(), strides=()):
+    """What the CUDA kernels need beyond the plain version: channel counts
+    that are multiples of 64 (64-channel tiles, 64-deep product slices),
+    and 16-byte alignment of every operand read as vectors or through a
+    tensor map: ``aligned`` holds (what, tensor or byte address), ``strides``
+    (what, stride in elements, element size). Raises ValueError."""
+    for what, n in channels:
+        if n < 64 or n % 64:
+            raise ValueError(f"{name}: the CUDA kernel takes {what} that are "
+                             f"multiples of 64, got {n}")
+    for what, t in aligned:
+        addr = t if isinstance(t, int) else t.data_ptr()
+        if addr % 16:
+            raise ValueError(f"{name}: {what} must start on a 16-byte "
+                             f"boundary (vector loads, tensor maps)")
+    for what, stride, size in strides:
+        if stride * size % 16:
+            raise ValueError(f"{name}: the {what} stride of {stride} "
+                             f"elements is not a multiple of 16 bytes")
+
+
 def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
@@ -212,18 +324,71 @@ def _ptrs(tensors):
 def _library(name):
     lib = _build.load(name)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    params = getattr(lib, f"{name}_params")
+    params.restype = ll
     scratch = getattr(lib, f"{name}_scratch")
-    scratch.argtypes = [i, i, i, i]
-    scratch.restype = ctypes.c_longlong
+    scratch.restype = ll
     launch = getattr(lib, f"{name}_launch")
     if name == "uconv_pyramid":
-        launch.argtypes = ([p, ll, ll, ll] + [p] * 6
-                           + [i] * 6 + [ctypes.c_float, p])
+        params.argtypes = [i, i]
+        scratch.argtypes = [i, i, i, i, i]
+        launch.argtypes = ([p, ll, ll] + [p] * 6 + [i] * 6
+                           + [ctypes.c_float, p])
     else:
-        launch.argtypes = ([p, p, ll, ll, ll] + [p] * 7
-                           + [i] * 6 + [ctypes.c_float, p])
+        params.argtypes = [i, i, i]
+        scratch.argtypes = [i, i, i, i]
+        launch.argtypes = ([p, p, ll, ll, ll] + [p] * 8 + [i] * 6
+                           + [ctypes.c_float, p])
     launch.restype = i
     return lib
+
+
+def _views(work, shapes):
+    """Contiguous views of one buffer, in order."""
+    out, off = [], 0
+    for shape in shapes:
+        n = 1
+        for d in shape:
+            n *= d
+        out.append(work[off:off + n].view(shape))
+        off += n
+    return out
+
+
+def pyramid_operand(x, raw_in, T0, Cin, C):
+    """The projection's operand as the kernel reads it: (x to keep alive,
+    the byte address of its first true row, its sample and row strides in
+    elements). A model-layout (B, Cin, T0) x is copied to (B, T0, Cin):
+    the product reads rows of channels. Raises where the kernel cannot
+    read it (see :func:`check_kernel_operands`)."""
+    if raw_in:  # (B, rows0, Cin); row t of the true data is PAD + t
+        if x.stride(2) != 1:
+            raise ValueError("pyramid_fused: the CUDA kernel reads x's rows "
+                             "in place; channels must be contiguous, got "
+                             f"strides {x.stride()}")
+        xs = (x.stride(0), x.stride(1))
+        base = x.data_ptr() + PAD * x.stride(1) * x.element_size()
+    else:
+        x = x.transpose(1, 2).contiguous()
+        xs, base = (T0 * Cin, Cin), x.data_ptr()
+    esize = x.element_size()
+    check_kernel_operands(
+        "pyramid_fused", [("C_out", Cin), ("C", C)], [("x", base)],
+        [("sample", xs[0], esize), ("row", xs[1], esize)])
+    if x.dtype == torch.bfloat16:
+        check_product("pyramid_fused", Cin, C)
+    return x, base, xs
+
+
+def fuse_expand_operands(scales_raw, x_raw, C, Cout):
+    """Raises where the kernel cannot read the operands of
+    :func:`fuse_expand_fused` (see :func:`check_kernel_operands`)."""
+    check_kernel_operands(
+        "fuse_expand_fused", [("C", C), ("C_out", Cout)],
+        [("x_raw", x_raw)] + [(f"scale {i}", s)
+                              for i, s in enumerate(scales_raw)])
+    if x_raw.dtype == torch.bfloat16:
+        check_product("fuse_expand_fused", C, Cout)
 
 
 def _launch_pyramid(x, block, depth, T0, raw_in, eps):
@@ -232,26 +397,26 @@ def _launch_pyramid(x, block, depth, T0, raw_in, eps):
     Cin = block.proj_1x1.conv.in_channels
     C = block.proj_1x1.conv.out_channels
     Ts = scale_lengths(T0, depth)
-    if raw_in:  # (B, rows0, Cin); row t of the true data is PAD + t
-        base = x.data_ptr() + PAD * x.stride(1) * x.element_size()
-        xs = (x.stride(0), x.stride(1), x.stride(2))
-    else:       # (B, Cin, T0)
-        base = x.data_ptr()
-        xs = (x.stride(0), x.stride(2), x.stride(1))
-    outs = [torch.empty((B, _pads(T), C), dtype=dt, device=dev) for T in Ts]
-    pooled = torch.empty((B, _pads(Ts[-1]) - 2 * PAD, C), dtype=dt,
-                         device=dev)
-    h0 = torch.empty((B, _pads(T0), C), dtype=dt, device=dev)
+    x, base, xs = pyramid_operand(x, raw_in, T0, Cin, C)
+    rows_g = _pads(Ts[-1]) - 2 * PAD
+    shapes = [(B, _pads(T), C) for T in Ts] + [(B, rows_g, C), (B, T0, C)]
+    work = torch.empty(sum(a * b * c for a, b, c in shapes), dtype=dt,
+                       device=dev)
+    *outs, pooled, y = _views(work, shapes)
     lib = _library("uconv_pyramid")
-    n_part = lib.uconv_pyramid_scratch(B, T0, C, depth)
-    y_proj = torch.empty(B * T0 * C + n_part, dtype=torch.float32,
-                         device=dev)
-    prm = _pyramid_weights(block, dev)
+    bf16 = _STORAGE[dt]
+    scratch = torch.empty(lib.uconv_pyramid_scratch(B, T0, C, depth, bf16),
+                          dtype=torch.float32, device=dev)
+    pack = weight_pack("pyramid", block, dt, dev)
+    if pack.prm.numel() != lib.uconv_pyramid_params(C, depth):
+        raise RuntimeError("pyramid_fused: parameter pack of "
+                           f"{pack.prm.numel()} floats, the kernel reads "
+                           f"{lib.uconv_pyramid_params(C, depth)}")
     with torch.cuda.device(dev):
         err = lib.uconv_pyramid_launch(
-            base, *xs, _ptrs(outs), pooled.data_ptr(), y_proj.data_ptr(),
-            y_proj.data_ptr() + 4 * B * T0 * C, h0.data_ptr(), _ptrs(prm),
-            B, T0, Cin, C, depth, _STORAGE[dt], eps,
+            base, *xs, _ptrs(outs), pooled.data_ptr(), y.data_ptr(),
+            scratch.data_ptr(), pack.prm_ptr, pack.wt_ptr,
+            B, T0, Cin, C, depth, bf16, eps,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pyramid_fused launch failed: CUDA error {err}")
@@ -264,25 +429,29 @@ def _launch_fuse_expand(scales_raw, g_raw, x_raw, block, Ts, eps):
     B, rows0, Cout = x_raw.shape
     C = scales_raw[0].shape[-1]
     depth = len(Ts)
+    fuse_expand_operands(scales_raw, x_raw, C, Cout)
     out = torch.empty_like(x_raw)
     # scratch: the depth fused scales, the depth-1 expansion outputs, then
     # a contiguous copy of g
-    rows = [_pads(T) for T in Ts] + [_pads(T) for T in Ts[:-1]] + [Ts[-1]]
-    work = torch.empty(B * C * sum(rows), dtype=dt, device=dev)
-    bufs, off = [], 0
-    for r in rows:
-        bufs.append(work[off:off + B * r * C])
-        off += B * r * C
+    shapes = [(B, _pads(T), C) for T in Ts] \
+        + [(B, _pads(T), C) for T in Ts[:-1]] + [(B, Ts[-1], C)]
+    work = torch.empty(sum(a * b * c for a, b, c in shapes), dtype=dt,
+                       device=dev)
+    bufs = _views(work, shapes)
     lib = _library("uconv_fuse_expand")
-    partials = torch.empty(lib.uconv_fuse_expand_scratch(B, Ts[0], C, depth),
-                           dtype=torch.float32, device=dev)
-    prm = _fusion_weights(block, dev)
+    scratch = torch.empty(lib.uconv_fuse_expand_scratch(B, Ts[0], C, depth),
+                          dtype=torch.float32, device=dev)
+    pack = weight_pack("fusion", block, dt, dev)
+    if pack.prm.numel() != lib.uconv_fuse_expand_params(C, Cout, depth):
+        raise RuntimeError("fuse_expand_fused: parameter pack of "
+                           f"{pack.prm.numel()} floats, the kernel reads "
+                           f"{lib.uconv_fuse_expand_params(C, Cout, depth)}")
     with torch.cuda.device(dev):
         err = lib.uconv_fuse_expand_launch(
             _ptrs(scales_raw), g_raw.data_ptr(), *g_raw.stride(),
             bufs[-1].data_ptr(), x_raw.data_ptr(), out.data_ptr(),
-            _ptrs(bufs[:depth]), _ptrs(bufs[depth:-1]), partials.data_ptr(),
-            _ptrs(prm),
+            _ptrs(bufs[:depth]), _ptrs(bufs[depth:-1]), scratch.data_ptr(),
+            pack.prm_ptr, pack.wt_ptr,
             B, Ts[0], C, Cout, depth, _STORAGE[dt], eps,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

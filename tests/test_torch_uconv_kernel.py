@@ -18,8 +18,9 @@ import torch.nn.functional as F
 
 from tdanet_tpu_torch.kernels.uconv_block import (
     PAD, _pads, from_raw, fuse_expand_fused, fuse_expand_fused_reference,
-    nearest_index, pool_bounds, pyramid_fused, pyramid_fused_reference,
-    scale_lengths, to_raw)
+    fuse_expand_operands, nearest_index, pool_bounds, pyramid_fused,
+    pyramid_fused_reference, pyramid_operand, scale_lengths, to_raw,
+    weight_pack)
 from tdanet_tpu_torch.models import load_jax_params
 from tdanet_tpu_torch.models.components import UConvBlock
 from tdanet_tpu_torch.probes.hybrid import hybrid_block
@@ -237,13 +238,58 @@ def test_hybrid_block_matches_module_fp64():
 
 @pytest.mark.parametrize("bad", ["channels", "raw_rows", "no_T0", "depth",
                                  "shallow", "scale_shape", "strided_scale",
-                                 "Ts", "g_rows", "x_raw"])
+                                 "Ts", "g_rows", "x_raw", "narrow_channels",
+                                 "misaligned_x", "row_stride",
+                                 "strided_channels", "misaligned_scale",
+                                 "narrow_out", "wide_product"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     block = seeded_block(8, 16, 4, seed=9)
     T = 37
     Ts = scale_lengths(T, 4)
     x = torch.randn(1, 8, T)
     x_raw = to_raw(x)
+    # what only the CUDA kernels refuse: channel counts off the 64-wide
+    # tiles, and operands off the 16-byte alignment of vectors and tensor
+    # maps (the helpers the CUDA path runs, here on CPU tensors)
+    rows = _pads(T)
+    if bad == "narrow_channels":
+        with pytest.raises(ValueError, match="multiples of 64"):
+            pyramid_operand(torch.zeros(1, rows, 40), True, T, 40, 128)
+        return
+    if bad == "misaligned_x":
+        x = torch.zeros(1 + rows * 64)[1:].view(1, rows, 64)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            pyramid_operand(x, True, T, 64, 128)
+        return
+    if bad == "row_stride":
+        x = torch.zeros(2, rows, 66)[:, :, :64]
+        with pytest.raises(ValueError, match="not a multiple of 16 bytes"):
+            pyramid_operand(x, True, T, 64, 128)
+        return
+    if bad == "strided_channels":
+        x = torch.zeros(1, 64, rows).transpose(1, 2)
+        with pytest.raises(ValueError, match="channels must be contiguous"):
+            pyramid_operand(x, True, T, 64, 128)
+        return
+    if bad == "wide_product":  # the bf16 product's weight and columns
+        x = torch.zeros(1, rows, 64, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="tensor-core product"):
+            pyramid_operand(x, True, T, 64, 320)
+        scales = [torch.zeros(1, _pads(t), 1024, dtype=torch.bfloat16)
+                  for t in Ts]
+        with pytest.raises(ValueError, match="tensor-core product"):
+            fuse_expand_operands(scales, torch.zeros(
+                1, rows, 128, dtype=torch.bfloat16), 1024, 128)
+        return
+    if bad in ("misaligned_scale", "narrow_out"):
+        scales = [torch.zeros(1, _pads(t), 128) for t in Ts]
+        xr = torch.zeros(1, rows, 64 if bad == "misaligned_scale" else 96)
+        if bad == "misaligned_scale":
+            scales[2] = torch.zeros(1 + scales[2].numel())[1:].view(
+                scales[2].shape)
+        with pytest.raises(ValueError, match="16-byte boundary|multiples"):
+            fuse_expand_operands(scales, xr, 128, xr.shape[2])
+        return
     if bad in ("channels", "raw_rows", "no_T0", "depth", "shallow"):
         kw = dict(depth=4)
         if bad == "channels":
@@ -276,6 +322,114 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         fuse_expand_fused(scales, g, x_raw, block, Ts=Ts)
 
 
+def test_model_layout_operand_is_copied_to_rows():
+    """A model-layout x is handed to the product as (B, T0, Cin) rows."""
+    x = torch.randn(2, 64, 37)
+    xt, base, strides = pyramid_operand(x, False, 37, 64, 128)
+    assert torch.equal(xt, x.transpose(1, 2)) and xt.is_contiguous()
+    assert (base, strides) == (xt.data_ptr(), (37 * 64, 64))
+    raw = to_raw(x)
+    same, base, strides = pyramid_operand(raw, True, 37, 64, 128)
+    assert same is raw and strides == (_pads(37) * 64, 64)
+    assert base == raw.data_ptr() + PAD * 64 * 4
+
+
+@pytest.mark.parametrize("kind", ["pyramid", "fusion"])
+def test_weight_pack_is_reused_until_the_parameters_change(kind):
+    """The pack is made once and reused while the parameters are the same
+    tensors at the same version; an in-place update or a .to() rebuilds
+    it, and its layout is the one the C entry points read."""
+    block = seeded_block(64, 128, 4, seed=12)
+    cpu = torch.device("cpu")
+    pack = weight_pack(kind, block, torch.float32, cpu)
+    assert weight_pack(kind, block, torch.float32, cpu) is pack
+    assert weight_pack(kind, block, torch.bfloat16, cpu) is not pack
+    pack = weight_pack(kind, block, torch.float32, cpu)
+    C, Cout, depth = 128, 64, 4
+    if kind == "pyramid":
+        assert pack.prm.numel() == 3 * C + 4 + 8 * C * depth
+        assert torch.equal(pack.wt, block.proj_1x1.conv.weight[:, :, 0].t())
+        st = block.spp_dw[2]
+        off = 3 * C + 4 + 2 * 8 * C
+        assert torch.equal(pack.prm[3 * C], block.proj_1x1.act.weight[0])
+        assert torch.equal(pack.prm[off:off + 5 * C].view(5, C),
+                           st.conv.weight[:, 0, :].t())
+        assert torch.equal(pack.prm[off + 7 * C:off + 8 * C], st.norm.beta)
+        target = block.spp_dw[1].norm.gamma
+    else:
+        assert pack.prm.numel() == 9 * C * depth + 21 * C * (depth - 1) + Cout
+        assert torch.equal(pack.wt, block.res_conv.weight[:, :, 0].t())
+        la = block.last_layer[1].global_act
+        off = 9 * C * depth + 21 * C + 7 * C
+        assert torch.equal(pack.prm[off:off + 5 * C].view(5, C),
+                           la.conv.weight[:, 0, :].t())
+        assert torch.equal(pack.prm[-Cout:], block.res_conv.bias)
+        target = block.loc_glo_fus[2].global_embedding.norm.gamma
+    with torch.no_grad():
+        target.mul_(2.0)
+    rebuilt = weight_pack(kind, block, torch.float32, cpu)
+    assert rebuilt is not pack
+    assert weight_pack(kind, block, torch.float32, cpu) is rebuilt
+    block.to(torch.float64)
+    assert weight_pack(kind, block, torch.float32, cpu) is not rebuilt
+    with torch.inference_mode():  # inference tensors keep no version
+        made = seeded_block(64, 128, 4, seed=12)
+        pack = weight_pack(kind, made, torch.float32, cpu)
+        assert weight_pack(kind, made, torch.float32, cpu) is pack
+
+
+def test_statistics_merge_keeps_fp32_at_an_offset():
+    """The kernels' GlobLN statistics in fp32, mirrored in their order: per
+    128 x 64 tile one reduction of sums about the tile's first value y0
+    (count, y0 + s1 / n, s2 - s1 * s1 / n), parts merged by Chan's update,
+    lane i of one warp taking parts i, i + 32, ..., then a shuffle tree.
+    Held against float64 at an offset of 1e3, where a one-pass
+    E[y^2] - E[y]^2 in fp32 is off by far more."""
+    rng = np.random.default_rng(13)
+    y = (1e3 + rng.standard_normal((2032, 512))).astype(np.float32)
+    parts = []
+    for t0 in range(0, 2032, 128):
+        for c0 in range(0, 512, 64):
+            tile = y[t0:t0 + 128, c0:c0 + 64]
+            y0 = tile[0, 0]
+            d = tile - y0
+            s1 = d.sum(dtype=np.float32)
+            s2 = np.square(d, dtype=np.float32).sum(dtype=np.float32)
+            n = np.float32(tile.size)
+            m = np.float32(s1 / n)
+            parts.append((n, np.float32(y0 + m),
+                          np.float32(max(s2 - s1 * m, 0))))
+
+    def merge(a, b):
+        if b[0] == 0:
+            return a
+        if a[0] == 0:
+            return b
+        n = np.float32(a[0] + b[0])
+        d = np.float32(b[1] - a[1])
+        mean = np.float32(a[1] + d * np.float32(b[0] / n))
+        m2 = np.float32(a[2] + b[2] + d * d * np.float32(a[0] / n) * b[0])
+        return (n, mean, m2)
+
+    zero = (np.float32(0), np.float32(0), np.float32(0))
+    lanes = [zero] * 32
+    for i, p in enumerate(parts):
+        lanes[i % 32] = merge(lanes[i % 32], p)
+    h = 16
+    while h:  # shuffle down: lane i takes lane i + h
+        lanes = [merge(lanes[i], lanes[i + h]) if i + h < 32 else lanes[i]
+                 for i in range(32)]
+        h //= 2
+    n, mean, m2 = lanes[0]
+    y64 = y.astype(np.float64)
+    assert n == y.size
+    assert abs(mean - y64.mean()) <= 1e-7 * 1e3
+    assert abs(m2 / n - y64.var()) <= 1e-5 * y64.var()
+    one_pass = np.float32((y * y).mean(dtype=np.float32)) - np.float32(
+        y.mean(dtype=np.float32)) ** 2
+    assert abs(one_pass - y64.var()) > 1e-3
+
+
 def test_cpu_call_counts_no_launch():
     block = seeded_block(8, 16, 3, seed=11)
     x = torch.randn(2, 8, 29)
@@ -292,32 +446,45 @@ def test_cpu_call_counts_no_launch():
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
+    """Small widths, the bench's full width at B 24 in bf16, and a ragged
+    length; every output with its pad rows; a second run equal bit for
+    bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for T, depth, dtype in [(402, 5, torch.float32), (201, 4, torch.float32),
-                            (2010, 5, torch.bfloat16)]:
-        block = seeded_block(COUT, C, depth, seed=T).cuda()
+    for Bc, cout, c, T, depth, dtype in [
+            (B, COUT, C, 402, 5, torch.float32),
+            (B, COUT, C, 201, 4, torch.float32),
+            (B, COUT, C, 2010, 5, torch.bfloat16),
+            (24, 128, 512, 2010, 5, torch.bfloat16),
+            (3, 128, 512, 1999, 5, torch.float32)]:
+        block = seeded_block(cout, c, depth, seed=T).cuda()
         Ts = scale_lengths(T, depth)
-        x = torch.from_numpy(_x(T, seed=T)).cuda().to(dtype)
+        x = torch.from_numpy(np.random.default_rng(T).standard_normal(
+            (Bc, cout, T)).astype(np.float32)).cuda().to(dtype)
         x_raw = to_raw(x)
         before = (pyramid_fused.launches, fuse_expand_fused.launches)
         with torch.inference_mode():
             got_s, got_g = pyramid_fused(x_raw, block, depth=depth, raw=True,
                                          raw_in=True, T0=T)
+            again_s, again_g = pyramid_fused(x_raw, block, depth=depth,
+                                             raw=True, raw_in=True, T0=T)
             ref_s, ref_g = pyramid_fused_reference(
                 x_raw.float(), block, depth=depth, raw=True, raw_in=True,
                 T0=T)
             scales = [s.to(dtype) for s in ref_s]
             g = ref_g.to(dtype)
             got = fuse_expand_fused(scales, g, x_raw, block, Ts=Ts)
+            again = fuse_expand_fused(scales, g, x_raw, block, Ts=Ts)
             ref = fuse_expand_fused_reference(
                 [s.float() for s in scales], g.float(), x_raw.float(), block,
                 Ts=Ts)
         torch.cuda.synchronize()
         assert (pyramid_fused.launches, fuse_expand_fused.launches) == \
-            (before[0] + 1, before[1] + 1)
+            (before[0] + 2, before[1] + 2)
+        for a, a2 in zip(got_s + [got_g, got], again_s + [again_g, again]):
+            assert torch.equal(a, a2), (T, Bc, dtype)
         for a, b in zip(got_s + [got_g, got], ref_s + [ref_g, ref]):
             assert a.shape == b.shape and a.dtype == dtype
             if dtype == torch.float32:
