@@ -63,6 +63,35 @@ exit code is not 0:
   13. times: the window kernels against plain, the Swin forward and
      forward + backward, and, with their launch counts set to 0 just
      before, the two probes through their entry points.
+  14. the backward kernel of dw_conv_glob_ln against its plain backward at
+     the 20 site shapes of the training recipe's block (8 kHz, 3 s):
+     bf16 activations over fp32 parameters at B 8 (SNR of dx, dweight,
+     dbias, dgamma, dbeta >= 40 dB against plain in fp32 on the same
+     bf16-rounded values) and fp32 at B 2 (max abs <= 1e-4 max abs of
+     plain); a rerun equal bit for bit and a CUDA-graph replay equal to
+     eager (probes/dw_backward.py);
+  15. gradients of the recipe's model at full width (out 128, in 512, 16
+     blocks, depth 5, 4 ms, 8 kHz, 2 sources, seeded weights), B 2, 1 s,
+     fp32, stochastic layers off, PIT neg-SNR: every parameter's gradient
+     against the same model in float64 on the CPU through the plain path
+     (SNR >= 50 dB); #1's launches per step exactly 512 forward / 464
+     backward without checkpointing and 1024 / 464 with it (the coarsest
+     LA fusion's 3 sites a block never reach the loss); with dropout on,
+     the gradients with and without checkpointing agree (SNR >= 60 dB);
+  16. the training CLI, with the launch counts set to 0 just before:
+     synthetic tone-plus-noise data (16 train, 8 validation utterances of
+     3.5 s at 8 kHz) written with the port's write_wav, configs/tdanet.yml
+     read by the port's parser with overrides (data dirs, 2 epochs, an
+     experiment dir under a temp dir), tdanet_tpu_torch.audio_train.main
+     at full width, B 8, 3 s, bf16, per-iteration checkpointing; the
+     history, best_model.pth (from_pretrain gives the trained best model's
+     forward) and a resume that runs one more epoch; then 20 steps on one
+     fixed batch, whose last loss must be below the first;
+  17. times: the backward kernel against its plain version at the finest
+     site (B 8 bf16, B 2 fp32) and summed over a step's 464 launches,
+     beside the bound; the train step (median of 5 after 2 warm-up steps)
+     and its peak allocated memory with and without checkpointing; one
+     profiled step (probes/train_step.py).
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
 the result line.
@@ -72,6 +101,7 @@ import copy
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -83,7 +113,8 @@ import torch
 
 from tdanet_tpu_torch.kernels import _build, micro_ops
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
-    dw_conv_glob_ln, dw_conv_glob_ln_chunked, dw_conv_glob_ln_reference)
+    dw_conv_glob_ln, dw_conv_glob_ln_backward, dw_conv_glob_ln_chunked,
+    dw_conv_glob_ln_reference)
 from tdanet_tpu_torch.kernels.uconv_block import (
     fuse_expand_fused, kernels_per_call, pyramid_fused, scale_lengths, to_raw)
 from tdanet_tpu_torch.kernels.window_process import (
@@ -93,7 +124,8 @@ from tdanet_tpu_torch.models import (
     BaseModel, SwinTransformer, SwinTransformerSys, TDANetBest)
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
-    dw_sites, hybrid, mosaic_ops, mosaic_ops2, uconv_halves, uconv_kernel)
+    dw_backward, dw_sites, hybrid, mosaic_ops, mosaic_ops2, train_step,
+    uconv_halves, uconv_kernel)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.utils import separate, separate_batched
 from tdanet_tpu_torch.utils.timing import (
@@ -105,8 +137,8 @@ CFG = dict(out_channels=128, in_channels=512, num_blocks=16,
 SITES_PER_BLOCK = 32  # 5 pyramid stages + 5 LA x 3 + 4 LA x 3
 C = 512
 REQUEST_SECONDS = (1.0, 2.0, 2.7)
-SOURCES = ("dw_conv_glob_ln", "uconv_pyramid", "uconv_fuse_expand",
-           "window_process", "micro_ops")
+SOURCES = ("dw_conv_glob_ln", "dw_conv_glob_ln_backward", "uconv_pyramid",
+           "uconv_fuse_expand", "window_process", "micro_ops")
 UCONV = dict(T=2010, Cout=128, depth=5)  # C as above: the bench's block
 CHAIN = 20
 # Swin-UNet tiny's window sites (H = W, C, shift), window 7: two blocks per
@@ -117,6 +149,11 @@ WINDOW_SITES = ((56, 96, 0), (56, 96, 3), (28, 192, 0), (28, 192, 3),
 SWIN_BLOCKS = 14      # SwinTransformerSys: 8 encoder + 6 decoder blocks
 CLASSIFIER_BLOCKS = 12  # SwinTransformer, depths (2, 2, 6, 2)
 SWIN_BATCH = 2
+# the training recipe, configs/tdanet.yml, at full width
+RECIPE = train_step.RECIPE
+TRAIN_UTTERANCES, VALID_UTTERANCES = 16, 8  # 2 and 1 batches of 8
+FIXED_STEPS = 20
+TRAIN_BATCH = 8  # the recipe's batch, timed with and without checkpointing
 
 
 def phase(name):
@@ -603,6 +640,214 @@ def probe_entry(name, script, line, rows):
         "library_ms": sum(library) if library else None, "variants": rows}
 
 
+def dw_counts():
+    return dw_conv_glob_ln.launches, dw_conv_glob_ln_backward.launches
+
+
+def loss_and_grads(model, loss_fn, mix, src, **kw):
+    """One forward and backward; (loss, {name: gradient})."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model(mix, **kw), src)
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+def drive_gradients():
+    """Phase 15: the full-width recipe model's gradients on the card
+    against float64 on the CPU, #1's launches per step, and checkpointed
+    gradients with dropout on. Returns the lowest SNR."""
+    from tdanet_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
+    loss_fn = PITLossWrapper(pairwise_neg_snr, threshold_byloss=True)
+    model = TDANetBest(**RECIPE)
+    model.reset_parameters(torch.Generator().manual_seed(77))
+    cpu64 = copy.deepcopy(model).double()
+    model = model.cuda()
+    mix, src = train_step.tone_batch(2, seconds=1.0, seed=3)
+    # the coarsest scale's LA fusion (loc_glo_fus[depth - 1], 3 sites a
+    # block) never reaches the loss: the expansion pairs the finer scales
+    # (the reference's quirk), so autograd runs no backward there
+    sites = SITES_PER_BLOCK * RECIPE["num_blocks"]
+    dead = 3 * RECIPE["num_blocks"]
+    grads = {}
+    for remat, want in ((False, (sites, sites - dead)),
+                        (True, (2 * sites, sites - dead))):
+        model.sm.remat = remat
+        before = dw_counts()
+        loss, grads[remat] = loss_and_grads(model, loss_fn, mix, src)
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(dw_counts(), before))
+        print(f"one step B=2 1 s fp32, checkpointing {remat}: loss "
+              f"{loss.item():.4f}; #1 launches forward {got[0]}, backward "
+              f"{got[1]} (expected {want})")
+        if got != want:
+            raise AssertionError(f"{got} launches of #1 (forward, backward)"
+                                 f" in one step, expected {want}")
+    t0 = time.perf_counter()
+    loss64, g64 = loss_and_grads(cpu64, loss_fn, mix.cpu().double(),
+                                 src.cpu().double())
+    print(f"CPU float64 plain path: loss {loss64.item():.4f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if set(g64) != set(grads[False]):
+        raise AssertionError("the card and the CPU differ in which "
+                             "parameters have a gradient")
+    snrs = {n: snr_db(g64[n], grads[False][n].cpu()) for n in g64}
+    low = sorted(snrs.items(), key=lambda kv: kv[1])
+    print(f"{len(snrs)} parameter gradients, card fp32 vs CPU float64: "
+          f"lowest SNR {low[0][1]:.2f} dB ({low[0][0]}), median "
+          f"{statistics.median(snrs.values()):.2f} dB (limit 50)")
+    for n, v in low[:3]:
+        print(f"  {v:.2f} dB {n}")
+    if low[0][1] < 50.0:
+        raise AssertionError("a gradient disagrees with the CPU")
+    drop = {}
+    for remat in (False, True):
+        model.sm.remat = remat
+        _, drop[remat] = loss_and_grads(
+            model, loss_fn, mix, src, training=True,
+            generator=torch.Generator().manual_seed(5))
+    same = min(snr_db(drop[False][n], drop[True][n]) for n in drop[False])
+    print(f"dropout on: gradients with and without checkpointing, lowest "
+          f"SNR {same:.2f} dB (limit 60)")
+    if same < 60.0:
+        raise AssertionError("checkpointed gradients differ with dropout on")
+    torch.cuda.synchronize()
+    return low[0][1]
+
+
+def write_split(root, n, seed, seconds=3.5, sr=8000):
+    """n utterances of two tone-plus-noise sources and their mixture, with
+    the manifests the data modules read."""
+    from tdanet_tpu_torch.utils import write_wav
+    rng = np.random.default_rng(seed)
+    T = int(seconds * sr)
+    t = np.arange(T) / sr
+    infos = {"mix_clean": [], "s1": [], "s2": []}
+    for i in range(n):
+        srcs = [0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * t
+                             + rng.uniform(0, 6))
+                + 0.02 * rng.standard_normal(T) for _ in range(2)]
+        for key, data in (("mix_clean", srcs[0] + srcs[1]), ("s1", srcs[0]),
+                          ("s2", srcs[1])):
+            path = os.path.join(root, key, f"utt{i}.wav")
+            write_wav(path, data, sr)
+            infos[key].append([path, T])
+    for key, rows in infos.items():
+        with open(os.path.join(root, f"{key}.json"), "w") as f:
+            json.dump(rows, f)
+
+
+def drive_training(tmp):
+    """Phase 16: audio_train.main on the recipe, from launch counts of 0;
+    returns #1's (forward, backward) launches in that run."""
+    from tdanet_tpu_torch import audio_train
+    from tdanet_tpu_torch.utils.parser import parse_config
+    tr, cv = os.path.join(tmp, "tr"), os.path.join(tmp, "cv")
+    write_split(tr, TRAIN_UTTERANCES, seed=0)
+    write_split(cv, VALID_UTTERANCES, seed=1)
+    exp = os.path.join(tmp, "exp")
+
+    def config(epochs, *extra):
+        return parse_config([
+            "--conf_dir", "configs/tdanet.yml",
+            f"datamodule.data_config.train_dir={tr}",
+            f"datamodule.data_config.valid_dir={cv}",
+            f"datamodule.data_config.test_dir={cv}",
+            f"training.epochs={epochs}", f"main_args.exp_dir={exp}",
+            "exp.project=null", *extra])
+
+    dw_conv_glob_ln.launches = dw_conv_glob_ln_backward.launches = 0
+    t0 = time.perf_counter()
+    trainer = audio_train.main(config(2))
+    torch.cuda.synchronize()
+    launches = dw_counts()
+    print(f"audio_train.main: 2 epochs in {time.perf_counter() - t0:.1f} s "
+          f"(first calls included); #1 launches forward {launches[0]}, "
+          f"backward {launches[1]}")
+    if min(launches) < 1:
+        raise AssertionError(f"the training path missed #1: {launches}")
+    hist = trainer.history
+    if [r["epoch"] for r in hist] != [0, 1] or not all(
+            np.isfinite([r["train_loss"], r["val_loss"]]).all()
+            for r in hist):
+        raise AssertionError(f"bad history {hist}")
+    for name in ("history.json", "best_k_models.json", "best_model.pth",
+                 "conf.yml", "extras.json"):
+        if not os.path.exists(os.path.join(exp, name)):
+            raise AssertionError(f"no {name} in the experiment dir")
+    loaded = BaseModel.from_pretrain(
+        os.path.join(exp, "best_model.pth")).cuda()
+    wav = torch.from_numpy(tone_mix(2.0, seed=4, sr=8000)).cuda()[None]
+    with torch.no_grad():
+        a, b = loaded(wav), trainer.best_model(wav)
+    err = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"from_pretrain(best_model.pth) vs the trained best model, 2 s "
+          f"fp32 forward: max|d|/max|ref| {err:.2e} (limit 1e-6)")
+    if not (err <= 1e-6 and torch.isfinite(a).all()):
+        raise AssertionError("best_model.pth does not give the trained "
+                             "model's forward")
+    resumed = audio_train.main(config(3, "main_args.resume=true"))
+    if [r["epoch"] for r in resumed.history] != [2]:
+        raise AssertionError(f"resume ran {resumed.history}")
+    print(f"resume: epoch 2 only, {resumed.history[0]}")
+    state, step = resumed.state, resumed.train_step
+    mix, src, _ = next(iter(resumed.datamodule.train_dataloader()))
+    mix = torch.from_numpy(mix).cuda()
+    src = torch.from_numpy(src).cuda()
+    losses = []
+    for i in range(FIXED_STEPS):
+        state, loss = step(state, mix, src, torch.Generator().manual_seed(i))
+        losses.append(loss.item())
+    print(f"{FIXED_STEPS} steps on one fixed batch: loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f} "
+          f"({[round(v, 2) for v in losses]})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall on a fixed batch")
+    torch.cuda.synchronize()
+    return launches
+
+
+def drive_train_slice(card):
+    """Phases 14-17. Returns the backward kernel's entry of the kernels
+    line and #1's (forward, backward) launches on the training path."""
+    gen = torch.Generator().manual_seed(14)
+    phase("14 the backward of dw_conv_glob_ln against plain (recipe sites)")
+    bwd_worst, bwd_abs, bwd_low = dw_backward.check_all(gen)
+    phase("15 gradients of the full-width recipe model")
+    grad_snr = drive_gradients()
+    phase("16 training CLI (launch counts from 0)")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = drive_training(tmp)
+    phase(f"17 times (card: {card})")
+    finest, step_sums = dw_backward.time_all(gen)
+    steps = [train_step.time_steps(TRAIN_BATCH, remat)
+             for remat in (True, False)]
+    prof = train_step.profile_step(TRAIN_BATCH, True)
+    torch.cuda.synchronize()
+    b8 = finest[0]
+    return {
+        "name": "dw_conv_glob_ln_backward", "route": "cuda",
+        "source": "tdanet_tpu_torch/csrc/dw_conv_glob_ln_backward.cu",
+        "replaces": "tdanet_tpu/kernels/fused_pyramid.py:72",
+        "note": "the backward of #1; the JAX package has no kernel for it",
+        "launches": train_launches[1], "max_abs_err": bwd_abs,
+        "max_err_over_max_abs_fp32": bwd_worst,
+        "min_bf16_snr_db": bwd_low, "model_grad_min_snr_db": grad_snr,
+        "ms": b8["ms"], "plain_ms": b8["plain_ms"],
+        "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
+        "library_ms": None, "case": "B=8 T=3010 K=5 s=1 bias bf16",
+        "ms_b2_fp32": finest[1]["ms"],
+        "plain_ms_b2_fp32": finest[1]["plain_ms"],
+        "bound_ms_b2_fp32": finest[1]["bound_ms"],
+        "step_ms": step_sums["ms"], "step_plain_ms": step_sums["plain_ms"],
+        "step_bound_ms": step_sums["bound_ms"],
+        "step_profiled_ms": prof["backward_ms"],
+        "step_profiled_forward_ms": prof["forward_ms"],
+        "train_step_ms": {str(r["remat"]): r["ms"] for r in steps},
+        "train_step_peak_gib": {str(r["remat"]): r["peak_bytes"] / 2 ** 30
+                                for r in steps}}, train_launches
+
+
 def main():
     phase("1 device")
     if not torch.cuda.is_available():
@@ -858,6 +1103,10 @@ def main():
     kernels.append(probe_entry("probe_mosaic_ops2", "probe_mosaic_ops2", 38,
                                probe_records["probe_mosaic_ops2"]))
     torch.cuda.synchronize()
+
+    backward_entry, train_launches = drive_train_slice(card)
+    kernels[0]["train_launches"] = train_launches[0]
+    kernels.append(backward_entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

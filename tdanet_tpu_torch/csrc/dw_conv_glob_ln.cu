@@ -37,7 +37,10 @@
 //     and stores out in x's type.
 // The merge order is fixed by tile and CTA index, never by arrival, and
 // the barrier's own counter is the only atomic: for one card and shape
-// the output is the same bit for bit from run to run. (count, mean, M2)
+// the output is the same bit for bit from run to run. Where a gradient
+// is wanted, the CTA that owns a sample's first tile also writes the
+// sample's (hi, lo, rstd), which the backward kernel
+// (dw_conv_glob_ln_backward.cu) reads. (count, mean, M2)
 // rather than (sum, sum of squares), with each mean held as hi + lo (a
 // value of the data and the rest): no precision goes to a large common
 // offset of the activations. The tap count and the stride are template
@@ -292,7 +295,7 @@ dw_conv_glob_ln_kernel(const TX* __restrict__ x, TX* __restrict__ out,
                        const TP* __restrict__ w, const TP* __restrict__ bias,
                        const TP* __restrict__ gamma,
                        const TP* __restrict__ beta, float4* partials,
-                       Geometry g) {
+                       float* stats, Geometry g) {
   using Tl = Tile<TX, TP, K, S, TC>;
   __shared__ float tile[Tl::kSmem];
   __shared__ float ws[kTileC * K];
@@ -369,6 +372,11 @@ dw_conv_glob_ln_kernel(const TX* __restrict__ x, TX* __restrict__ out,
       st = block_merge(s, red_stats);
       rstd = rsqrtf(st.m2 / st.n + g.eps);
       stat_b = b;
+    }
+    if (stats != nullptr && threadIdx.x == 0 && i == b * g.per_sample) {
+      stats[3 * b] = st.hi;
+      stats[3 * b + 1] = st.lo;
+      stats[3 * b + 2] = rstd;
     }
     TX* ob = out + b * g.ob;
 #pragma unroll
@@ -454,13 +462,15 @@ int dw_conv_glob_ln_capacity(int x_bf16, int p_bf16, int K, int stride,
 
 // x, out: storage in fp32 (x_bf16 == 0) or bf16, element strides (B, T,
 // C); w (C, K), bias (C,) or null, gamma, beta (C,): contiguous, fp32
-// (p_bf16 == 0) or bf16; partials: fp32 (B, grid, 4), 16-byte aligned.
-// grid: the CTAs, at most the capacity and the tiles. One cooperative
-// launch on ``stream``.
+// (p_bf16 == 0) or bf16; partials: fp32 (B, grid, 4), 16-byte aligned;
+// stats: null, or fp32 (B, 3) that receives each sample's (hi, lo, rstd),
+// mean = hi + lo. grid: the CTAs, at most the capacity and the tiles. One
+// cooperative launch on ``stream``.
 // Returns a cudaError_t, 0 on success.
 int dw_conv_glob_ln_launch(const void* x, void* out, const void* w,
                            const void* bias, const void* gamma,
-                           const void* beta, void* partials, int B, int T,
+                           const void* beta, void* partials, float* stats,
+                           int B, int T,
                            int C, int T_out, int K, int stride, long long xb,
                            long long xt, long long xc, long long ob,
                            long long ot, long long oc, int t_contig,
@@ -485,7 +495,7 @@ int dw_conv_glob_ln_launch(const void* x, void* out, const void* w,
              static_cast<int>(ot), static_cast<int>(oc), eps};
   void* args[] = {const_cast<void**>(&x), &out, const_cast<void**>(&w),
                   const_cast<void**>(&bias), const_cast<void**>(&gamma),
-                  const_cast<void**>(&beta), &partials, &g};
+                  const_cast<void**>(&beta), &partials, &stats, &g};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       fn, dim3(grid), dim3(kThreads), args, 0,
       static_cast<cudaStream_t>(stream)));

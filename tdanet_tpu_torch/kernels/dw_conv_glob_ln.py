@@ -1,16 +1,22 @@
-"""Fused depthwise conv + GlobLN: the CUDA kernel's wrappers, its tile
-and grid plan, and its plain PyTorch version.
+"""Fused depthwise conv + GlobLN, forward and backward: the CUDA kernels'
+wrappers, their tile and grid plan, their plain PyTorch versions and the
+autograd Function that joins them.
 
 Counterpart of ``tdanet_tpu/kernels/fused_pyramid.py::dw_conv_glob_ln`` and
 ``tdanet_tpu/kernels/fused_pyramid_chunked.py::dw_conv_glob_ln_chunked``,
 with their signatures: x is (B, T, C), weight (C, 1, K) in torch's
 depthwise layout, bias, gamma and beta (C,). Both wrappers run the one
 kernel of ``csrc/dw_conv_glob_ln.cu``: one cooperative launch per call,
-whose grid :func:`plan` sets.
+whose grid :func:`plan` sets. Where a gradient is wanted, the forward
+kernel also writes each sample's statistics and the backward is
+``csrc/dw_conv_glob_ln_backward.cu`` (:func:`dw_conv_glob_ln_backward`),
+one cooperative launch too. The JAX package has no backward kernel: its
+trainer differentiates the plain ConvNorm, which
+:func:`dw_conv_glob_ln_backward_reference` writes out.
 
-On a CUDA tensor a wrapper launches the kernel or raises. On a CPU tensor,
+On a CUDA tensor a wrapper launches its kernel or raises. On a CPU tensor,
 and only there, it computes the plain version,
-:func:`dw_conv_glob_ln_reference`.
+:func:`dw_conv_glob_ln_reference` (autograd differentiates it).
 """
 
 from __future__ import annotations
@@ -20,12 +26,14 @@ from functools import lru_cache
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from tdanet_tpu_torch.kernels import _build
 from tdanet_tpu_torch.ops import basic as ops
 
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 TILE_T, TILE_C = 128, 32  # a tile: output rows x channels (csrc kTileT, kTileC)
+BACKWARD_TILE_T = 64      # the backward kernel's output rows a tile
 
 
 class Plan(NamedTuple):
@@ -37,14 +45,16 @@ class Plan(NamedTuple):
     grid: int        # CTAs: min(capacity, n_tiles)
 
 
-def plan(B, T_out, C, capacity):
-    """The tile and grid plan of one launch. Tiles are numbered sample by
-    sample, channel tile by channel tile, time tile fastest; the grid is
-    at most ``capacity`` (the CTAs the card holds at once) and at most the
-    tiles, and CTA j owns tiles [j N / G, (j+1) N / G)."""
+def plan(B, T_out, C, capacity, tile_t=TILE_T):
+    """The tile and grid plan of one launch. Tiles of ``tile_t`` output
+    rows (the forward's 128, the backward's 64) by 32 channels are
+    numbered sample by sample, channel tile by channel tile, time tile
+    fastest; the grid is at most ``capacity`` (the CTAs the card holds at
+    once) and at most the tiles, and CTA j owns tiles [j N / G,
+    (j+1) N / G)."""
     if capacity < 1:
         raise ValueError(f"capacity must be at least 1, got {capacity}")
-    tiles_t, tiles_c = -(-T_out // TILE_T), -(-C // TILE_C)
+    tiles_t, tiles_c = -(-T_out // tile_t), -(-C // TILE_C)
     n_tiles = B * tiles_t * tiles_c
     return Plan(tiles_t, tiles_c, tiles_t * tiles_c, n_tiles,
                 min(capacity, n_tiles))
@@ -58,6 +68,64 @@ def dw_conv_glob_ln_reference(x, weight, bias, gamma, beta, *, stride=1,
     y = ops.conv1d(x.transpose(1, 2), weight, bias, stride=stride,
                    padding=(K - 1) // 2, groups=C)
     return ops.glob_ln(y, gamma, beta, eps=eps).transpose(1, 2)
+
+
+def stats_reference(x, weight, bias, *, stride=1, K=5, eps=1e-8):
+    """Each sample's statistics as the forward kernel writes them, from
+    the plain one-pass form of ``ops.glob_ln``: (B, 3) of (hi, lo, rstd),
+    here with hi the mean and lo 0, in x's accumulation dtype."""
+    C = x.shape[-1]
+    y = ops.conv1d(x.transpose(1, 2), weight, bias, stride=stride,
+                   padding=(K - 1) // 2, groups=C).to(ops.acc_dtype(x.dtype))
+    mean = y.mean(dim=(1, 2))
+    var = torch.clamp(y.square().mean(dim=(1, 2)) - mean.square(), min=0.0)
+    return torch.stack([mean, torch.zeros_like(mean),
+                        torch.rsqrt(var + eps)], dim=1)
+
+
+def dw_conv_glob_ln_backward_reference(dy, x, weight, bias, gamma, *,
+                                       stride=1, K=5, eps=1e-8, stats=None):
+    """Plain PyTorch: the gradients of :func:`dw_conv_glob_ln_reference`
+    written out, in x's accumulation dtype (at least fp32).
+
+    With y = dwconv(x) + bias, xh = (y - mean) * rstd, g = dy * gamma,
+    A = mean(g) and M = mean(g * xh) per sample over (T_out, C):
+    dgamma = sum dy * xh, dbeta = sum dy, dz = rstd * (g - A - xh * M),
+    dbias = sum dz, dweight[c, k] = sum_t dz[t, c] x[t S + k - P, c] and dx
+    the transposed depthwise conv of dz. ``stats`` (B, 3) of (hi, lo,
+    rstd) as the forward kernel writes them, or None for the plain
+    one-pass statistics. Returns (dx, dweight, dbias or None, dgamma,
+    dbeta), each in its operand's dtype; dy in x's (B, T_out, C) form."""
+    B, T, C = x.shape
+    P = (K - 1) // 2
+    acc = ops.acc_dtype(x.dtype)
+    xc = x.transpose(1, 2).to(acc)
+    w = weight.to(acc)
+    y = F.conv1d(xc, w, None if bias is None else bias.to(acc),
+                 stride=stride, padding=P, groups=C)
+    T_out = y.shape[-1]
+    if stats is None:
+        stats = stats_reference(x.to(acc), w, None if bias is None
+                                else bias.to(acc), stride=stride, K=K,
+                                eps=eps)
+    st = stats.to(acc)[:, :, None, None]
+    xh = ((y - st[:, 0]) - st[:, 1]) * st[:, 2]
+    d = dy.transpose(1, 2).to(acc)
+    dgamma = (d * xh).sum(dim=(0, 2))
+    dbeta = d.sum(dim=(0, 2))
+    g = d * gamma.to(acc)[None, :, None]
+    A = g.mean(dim=(1, 2), keepdim=True)
+    M = (g * xh).mean(dim=(1, 2), keepdim=True)
+    dz = st[:, 2] * (g - A - xh * M)
+    xpad = F.pad(xc, (P, P))
+    span = stride * (T_out - 1) + 1
+    dweight = torch.stack([(dz * xpad[..., k:k + span:stride]).sum(dim=(0, 2))
+                           for k in range(K)], dim=1)[:, None, :]
+    dx = F.conv_transpose1d(dz, w, stride=stride, padding=P, groups=C,
+                            output_padding=T - span)
+    return (dx.transpose(1, 2).to(x.dtype), dweight.to(weight.dtype),
+            None if bias is None else dz.sum(dim=(0, 2)).to(bias.dtype),
+            dgamma.to(gamma.dtype), dbeta.to(gamma.dtype))
 
 
 def _check(x, weight, bias, gamma, beta, stride, K):
@@ -106,38 +174,86 @@ def _params(weight, bias, gamma, beta, device):
     return (*(None if p is None else _as_f32(p, device) for p in ps), 0)
 
 
-def _launch(x, weight, bias, gamma, beta, stride, K, eps):
+def _like(x, T_rows):
+    """An empty (B, T_rows, C) tensor in x's dtype and layout: T innermost
+    when it is x's innermost axis (the model's (B, C, T) tensor seen as
+    (B, T, C)), else C."""
+    B, _, C = x.shape
+    if x.stride(1) == 1:
+        return torch.empty((B, C, T_rows), dtype=x.dtype,
+                           device=x.device).transpose(1, 2)
+    return torch.empty((B, T_rows, C), dtype=x.dtype, device=x.device)
+
+
+def _out_len(T, K, stride):
+    return (T + 2 * ((K - 1) // 2) - K) // stride + 1
+
+
+def _launch(x, weight, bias, gamma, beta, stride, K, eps, want_stats=False):
+    """One launch of the forward kernel. Returns (out, stats): stats is
+    each sample's fp32 (hi, lo, rstd), (B, 3), when asked for, else None."""
     if x.dtype not in _STORAGE:
         raise TypeError(f"the CUDA kernel stores fp32 or bf16, got {x.dtype}")
-    if torch.is_grad_enabled() and any(
-            p is not None and p.requires_grad
-            for p in (x, weight, bias, gamma, beta)):
-        raise RuntimeError("dw_conv_glob_ln has no backward kernel yet; call "
-                           "it under torch.inference_mode() or no_grad()")
     B, T, C = x.shape
-    T_out = (T + 2 * ((K - 1) // 2) - K) // stride + 1
+    T_out = _out_len(T, K, stride)
     dev = x.device
     t_contig = x.stride(1) == 1
-    if t_contig:  # the model's (B, C, T) tensor seen as (B, T, C)
-        out = torch.empty((B, C, T_out), dtype=x.dtype,
-                          device=dev).transpose(1, 2)
-    else:
-        out = torch.empty((B, T_out, C), dtype=x.dtype, device=dev)
+    out = _like(x, T_out)
     w, b, g, be, p_bf16 = _params(weight, bias, gamma, beta, dev)
     x_bf16 = _STORAGE[x.dtype]
     grid = plan(B, T_out, C, capacity(x_bf16, p_bf16, K, stride, t_contig,
                                       dev.index)).grid
     partials = torch.empty(4 * B * grid, dtype=torch.float32, device=dev)
+    stats = (torch.empty((B, 3), dtype=torch.float32, device=dev)
+             if want_stats else None)
     err = _library().dw_conv_glob_ln_launch(
         x.data_ptr(), out.data_ptr(), w.data_ptr(),
         None if b is None else b.data_ptr(), g.data_ptr(), be.data_ptr(),
-        partials.data_ptr(), B, T, C, T_out, K, stride, *x.stride(),
+        partials.data_ptr(), None if stats is None else stats.data_ptr(),
+        B, T, C, T_out, K, stride, *x.stride(),
         *out.stride(), int(t_contig), x_bf16, p_bf16, grid, eps,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dw_conv_glob_ln launch failed: CUDA error {err}")
     dw_conv_glob_ln.launches += 1
-    return out
+    return out, stats
+
+
+def _launch_backward(dy, x, weight, bias, gamma, stats, stride, K):
+    """One launch of the backward kernel. dy must have the forward
+    output's layout (T innermost exactly when it is x's). Returns (dx,
+    dweight, dbias or None, dgamma, dbeta): dx in x's dtype and layout,
+    each parameter's gradient in that parameter's dtype."""
+    B, T, C = x.shape
+    T_out = dy.shape[1]
+    dev = x.device
+    t_contig = x.stride(1) == 1
+    dx = _like(x, T)
+    w, b, g, _, p_bf16 = _params(weight, bias, gamma, gamma, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw, db, dg, dbe = (torch.empty((C, K), **f32), torch.empty(C, **f32),
+                       torch.empty(C, **f32), torch.empty(C, **f32))
+    lib = _backward_library()
+    grid = plan(B, T_out, C, backward_capacity(dev.index),
+                BACKWARD_TILE_T)
+    parts = torch.empty(2 * B * grid.grid, dtype=torch.float64, device=dev)
+    tile_parts = torch.empty(
+        lib.dw_conv_glob_ln_backward_tile_floats(grid.n_tiles), **f32)
+    err = lib.dw_conv_glob_ln_backward_launch(
+        x.data_ptr(), dy.data_ptr(), w.data_ptr(),
+        None if b is None else b.data_ptr(), g.data_ptr(), stats.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dg.data_ptr(),
+        dbe.data_ptr(), parts.data_ptr(), tile_parts.data_ptr(), B, T, C,
+        T_out, K, stride, *x.stride(), *dy.stride(), *dx.stride(),
+        int(t_contig), _STORAGE[x.dtype], p_bf16, grid.grid,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dw_conv_glob_ln_backward launch failed: CUDA error {err}")
+    dw_conv_glob_ln_backward.launches += 1
+    return (dx, dw.reshape(C, 1, K).to(weight.dtype),
+            None if bias is None else db.to(bias.dtype),
+            dg.to(gamma.dtype), dbe.to(gamma.dtype))
 
 
 @lru_cache(maxsize=None)
@@ -154,15 +270,76 @@ def capacity(x_bf16, p_bf16, K, stride, t_contig, device_index):
 
 
 @lru_cache(maxsize=None)
+def backward_capacity(device_index):
+    """The most CTAs of the backward kernel the card holds at once."""
+    with torch.cuda.device(device_index):
+        n = _backward_library().dw_conv_glob_ln_backward_capacity()
+    if n < 1:
+        raise RuntimeError(
+            f"dw_conv_glob_ln_backward occupancy query failed: {n}")
+    return n
+
+
+@lru_cache(maxsize=None)
 def _library():
     lib = _build.load("dw_conv_glob_ln")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dw_conv_glob_ln_capacity.argtypes = [i] * 5
     lib.dw_conv_glob_ln_capacity.restype = i
     lib.dw_conv_glob_ln_launch.argtypes = (
-        [p] * 7 + [i] * 6 + [ll] * 6 + [i] * 4 + [ctypes.c_float, p])
+        [p] * 8 + [i] * 6 + [ll] * 6 + [i] * 4 + [ctypes.c_float, p])
     lib.dw_conv_glob_ln_launch.restype = i
     return lib
+
+
+@lru_cache(maxsize=None)
+def _backward_library():
+    lib = _build.load("dw_conv_glob_ln_backward")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dw_conv_glob_ln_backward_tile_floats.argtypes = [i]
+    lib.dw_conv_glob_ln_backward_tile_floats.restype = ll
+    lib.dw_conv_glob_ln_backward_capacity.argtypes = []
+    lib.dw_conv_glob_ln_backward_capacity.restype = i
+    lib.dw_conv_glob_ln_backward_launch.argtypes = (
+        [p] * 13 + [i] * 6 + [ll] * 9 + [i] * 4 + [p])
+    lib.dw_conv_glob_ln_backward_launch.restype = i
+    return lib
+
+
+class DwConvGlobLnFunction(torch.autograd.Function):
+    """The forward kernel with its statistics saved, and the backward
+    kernel as its gradient (both on the current stream, the backward in
+    autograd's thread). dy is made contiguous in the output's layout; dx
+    comes back in x's layout and dtype, each parameter's gradient in the
+    parameter's own dtype (fp32 master weights under bf16 activations)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, gamma, beta, stride, K, eps):
+        out, stats = _launch(x, weight, bias, gamma, beta, stride, K, eps,
+                             want_stats=True)
+        ctx.save_for_backward(x, weight, bias, gamma, stats)
+        ctx.stride, ctx.K = stride, K
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, gamma, stats = ctx.saved_tensors
+        if x.stride(1) == 1:
+            dy = dy.transpose(1, 2).contiguous().transpose(1, 2)
+        else:
+            dy = dy.contiguous()
+        grads = _launch_backward(dy, x, weight, bias, gamma, stats,
+                                 ctx.stride, ctx.K)
+        return (*grads, None, None, None)
+
+
+def _dispatch(x, weight, bias, gamma, beta, stride, K, eps):
+    if torch.is_grad_enabled() and any(
+            p is not None and p.requires_grad
+            for p in (x, weight, bias, gamma, beta)):
+        return DwConvGlobLnFunction.apply(x, weight, bias, gamma, beta,
+                                          stride, K, eps)
+    return _launch(x, weight, bias, gamma, beta, stride, K, eps)[0]
 
 
 def dw_conv_glob_ln(x, weight, bias, gamma, beta, *, stride=1, K=5,
@@ -172,7 +349,9 @@ def dw_conv_glob_ln(x, weight, bias, gamma, beta, *, stride=1, K=5,
     and a per-channel affine. x (B, T, C) -> (B, T_out, C).
 
     One of T and C must be x's innermost contiguous axis; the output has
-    x's layout. ``launches`` counts the kernel's launches."""
+    x's layout. Where autograd wants a gradient of any operand, the call
+    goes through :class:`DwConvGlobLnFunction` (the backward kernel).
+    ``launches`` counts the forward kernel's launches."""
     _check(x, weight, bias, gamma, beta, stride, K)
     if x.device.type == "cpu":
         return dw_conv_glob_ln_reference(x, weight, bias, gamma, beta,
@@ -181,11 +360,57 @@ def dw_conv_glob_ln(x, weight, bias, gamma, beta, *, stride=1, K=5,
         raise RuntimeError(f"no dw_conv_glob_ln for device {x.device}")
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):  # a launch goes to this device
-            return _launch(x, weight, bias, gamma, beta, stride, K, eps)
-    return _launch(x, weight, bias, gamma, beta, stride, K, eps)
+            return _dispatch(x, weight, bias, gamma, beta, stride, K, eps)
+    return _dispatch(x, weight, bias, gamma, beta, stride, K, eps)
 
 
 dw_conv_glob_ln.launches = 0
+
+
+def forward_with_stats(x, weight, bias, gamma, beta, *, stride=1, K=5,
+                       eps=1e-8):
+    """The forward and each sample's (hi, lo, rstd) (B, 3), the operands
+    of :func:`dw_conv_glob_ln_backward`: the kernel's on a CUDA tensor
+    (a launch it counts), the plain version's on a CPU one."""
+    _check(x, weight, bias, gamma, beta, stride, K)
+    if x.device.type == "cpu":
+        return (dw_conv_glob_ln_reference(x, weight, bias, gamma, beta,
+                                          stride=stride, K=K, eps=eps),
+                stats_reference(x, weight, bias, stride=stride, K=K,
+                                eps=eps))
+    with torch.cuda.device(x.device):
+        return _launch(x, weight, bias, gamma, beta, stride, K, eps,
+                       want_stats=True)
+
+
+def dw_conv_glob_ln_backward(dy, x, weight, bias, gamma, stats, *, stride=1,
+                             K=5):
+    """The gradients of :func:`dw_conv_glob_ln` at x, from the forward's
+    per-sample statistics ``stats`` (B, 3) (:func:`forward_with_stats`):
+    (dx, dweight, dbias or None, dgamma, dbeta). dy (B, T_out, C) must
+    have the output's layout. On a CUDA tensor it launches the backward
+    kernel or raises; on a CPU tensor it computes
+    :func:`dw_conv_glob_ln_backward_reference`. ``launches`` counts the
+    kernel's launches."""
+    _check(x, weight, bias, gamma, gamma, stride, K)
+    if dy.shape != (x.shape[0], _out_len(x.shape[1], K, stride),
+                    x.shape[2]) or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
+                         f"the output of x {tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return dw_conv_glob_ln_backward_reference(
+            dy, x, weight, bias, gamma, stride=stride, K=K, stats=stats)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no dw_conv_glob_ln_backward for {x.device}")
+    if x.dtype not in _STORAGE:
+        raise TypeError(f"the CUDA kernel stores fp32 or bf16, got {x.dtype}")
+    if (dy.stride(1) == 1) != (x.stride(1) == 1) or min(dy.stride()) < 0:
+        raise ValueError("dy must have the forward output's layout")
+    with torch.cuda.device(x.device):
+        return _launch_backward(dy, x, weight, bias, gamma, stats, stride, K)
+
+
+dw_conv_glob_ln_backward.launches = 0
 
 
 def dw_conv_glob_ln_chunked(x, weight, bias, gamma, beta, *, eps=1e-8):

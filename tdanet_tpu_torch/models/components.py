@@ -1,19 +1,24 @@
 """TDANet building blocks as ``nn.Module``s (counterpart of
-``tdanet_tpu/models/components.py``), inference only.
+``tdanet_tpu/models/components.py``).
 
 Module and parameter names follow the JAX package's parameter tree, so a
 block's ``state_dict()`` keys equal its flat JAX keys. Every depthwise
-ConvNorm (groups == channels) runs the fused conv + GlobLN kernel; the
-dense ones are a conv and ``ops.glob_ln``.
+ConvNorm (groups == channels) runs the fused conv + GlobLN kernel, and its
+backward kernel where a gradient is wanted; the dense ones are a conv and
+``ops.glob_ln``.
 
-Training-time dropout and drop-path are not ported yet: at inference they
-are the identity.
+Training mode (``training=True`` with a ``torch.Generator``) places
+dropout and drop-path where the JAX package does, at its fixed rates of
+0.1: FFN after the ReLU and after fc2; the attention weights and the
+attention's residual branch; drop-path on both GA sublayers. At inference
+they are the identity.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import dw_conv_glob_ln
@@ -92,19 +97,22 @@ class DilatedConvNorm(ConvNorm):
 
 
 class FFN(nn.Module):
-    """1x1 ConvNorm -> depthwise k5 conv -> ReLU -> 1x1 ConvNorm."""
+    """1x1 ConvNorm -> depthwise k5 conv -> ReLU -> dropout -> 1x1 ConvNorm
+    -> dropout."""
 
-    def __init__(self, in_features, hidden):
+    def __init__(self, in_features, hidden, drop=0.1):
         super().__init__()
         self.fc1 = ConvNorm(in_features, hidden, 1, bias=False)
         self.dwconv = nn.Conv1d(hidden, hidden, 5, padding=2, groups=hidden)
         self.fc2 = ConvNorm(hidden, in_features, 1, bias=False)
+        self.drop = drop
 
-    def forward(self, x):
+    def forward(self, x, training=False, generator=None):
         x = self.fc1(x)
         x = ops.conv1d(x, self.dwconv.weight, self.dwconv.bias, padding=2,
                        groups=self.dwconv.groups)
-        return self.fc2(F.relu(x))
+        x = ops.dropout(F.relu(x), generator, self.drop, training)
+        return ops.dropout(self.fc2(x), generator, self.drop, training)
 
 
 class MultiHeadAttentionModule(nn.Module):
@@ -121,12 +129,18 @@ class MultiHeadAttentionModule(nn.Module):
 
     ``fixed=True`` is the repaired flavour: attention over T within each
     row, and the residual ``normed input + pe + attention output``.
+
+    In training the attention weights and the residual branch are dropped
+    at ``dropout``, and the one-utterance collapse is not taken: at B = 1
+    the weights of the one element are dropped too, as the JAX package
+    does.
     """
 
-    def __init__(self, channels, n_head=8, fixed=False):
+    def __init__(self, channels, n_head=8, fixed=False, dropout=0.1):
         super().__init__()
         self.n_head = n_head
         self.fixed = fixed
+        self.dropout = dropout
         self.attn_in_norm = nn.LayerNorm(channels)
         # parameter holder only: its forward is not the reference's math
         self.attn = nn.MultiheadAttention(channels, n_head)
@@ -139,18 +153,21 @@ class MultiHeadAttentionModule(nn.Module):
             self._pe[key] = ops.sinusoidal_pe(T, C, like.dtype, like.device)
         return self._pe[key]
 
-    def forward(self, x, per_utterance=False):
+    def forward(self, x, per_utterance=False, training=False,
+                generator=None):
         B, C, T = x.shape
         a = self.attn
         out = ops.layer_norm(x.transpose(1, 2), self.attn_in_norm.weight,
                              self.attn_in_norm.bias)
         out = out + self._pos_enc(T, C, out)
+        drop = dict(dropout_rate=self.dropout, generator=generator,
+                    training=training)
         if self.fixed:  # attention over T: (T, B, C) is (L, N, E)
             q = out.transpose(0, 1)
             attn_out = ops.multi_head_attention(
                 q, q, q, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
-                a.out_proj.bias, self.n_head).transpose(0, 1)
-        elif per_utterance or B == 1:
+                a.out_proj.bias, self.n_head, **drop).transpose(0, 1)
+        elif per_utterance or (B == 1 and not training):
             v = F.linear(out, a.in_proj_weight[2 * C:].to(out.dtype),
                          a.in_proj_bias[2 * C:].to(out.dtype))
             attn_out = F.linear(v, a.out_proj.weight.to(out.dtype),
@@ -158,23 +175,29 @@ class MultiHeadAttentionModule(nn.Module):
         else:
             attn_out = ops.multi_head_attention(
                 out, out, out, a.in_proj_weight, a.in_proj_bias,
-                a.out_proj.weight, a.out_proj.bias, self.n_head)
-        res = ops.layer_norm((out if self.fixed else attn_out) + attn_out,
-                             self.norm.weight, self.norm.bias)
+                a.out_proj.weight, a.out_proj.bias, self.n_head, **drop)
+        res = (out if self.fixed else attn_out) + ops.dropout(
+            attn_out, generator, self.dropout, training)
+        res = ops.layer_norm(res, self.norm.weight, self.norm.bias)
         return res.transpose(1, 2)
 
 
 class GA(nn.Module):
-    """Global attention: attention sublayer + FFN, each with a residual."""
+    """Global attention: attention sublayer + FFN, each with a residual
+    behind drop-path."""
 
-    def __init__(self, out_chan, fixed_mha=False):
+    def __init__(self, out_chan, fixed_mha=False, drop_path=0.1):
         super().__init__()
         self.attn = MultiHeadAttentionModule(out_chan, 8, fixed=fixed_mha)
         self.mlp = FFN(out_chan, out_chan * 2)
+        self.drop_path = drop_path
 
-    def forward(self, x, per_utterance=False):
-        x = x + self.attn(x, per_utterance)
-        return x + self.mlp(x)
+    def forward(self, x, per_utterance=False, training=False,
+                generator=None):
+        a = self.attn(x, per_utterance, training, generator)
+        x = x + ops.drop_path(a, generator, self.drop_path, training)
+        m = self.mlp(x, training, generator)
+        return x + ops.drop_path(m, generator, self.drop_path, training)
 
 
 class LA(nn.Module):
@@ -233,8 +256,10 @@ class UConvBlock(nn.Module):
              for _ in range(upsampling_depth - 1)])
         self.res_conv = nn.Conv1d(in_channels, out_channels, 1)
 
-    def forward(self, x, per_utterance=False):
-        return self.tail(x, *self.pyramid(x), per_utterance)
+    def forward(self, x, per_utterance=False, training=False,
+                generator=None):
+        return self.tail(x, *self.pyramid(x), per_utterance, training,
+                         generator)
 
     def pyramid(self, x):
         """The block's first half: (the depth scales, their pooled sum at
@@ -248,9 +273,11 @@ class UConvBlock(nn.Module):
             global_f = global_f + ops.adaptive_avg_pool1d(fea, coarsest)
         return output, global_f
 
-    def tail(self, residual, output, global_f, per_utterance=False):
+    def tail(self, residual, output, global_f, per_utterance=False,
+             training=False, generator=None):
         """The block's second half: GA, LA fusion, expansion, res_conv."""
-        global_f = self.globalatt(global_f, per_utterance)
+        global_f = self.globalatt(global_f, per_utterance, training,
+                                  generator)
         x_fused = [la(output[i], global_f)
                    for i, la in enumerate(self.loc_glo_fus)]
         expanded = None
@@ -265,8 +292,18 @@ class Recurrent(nn.Module):
     """One shared UConvBlock applied ``_iter`` times; from the second
     iteration its input is concat_block(mixture + x).
 
-    ``remat`` is kept for the training step, where it is to mean
-    ``torch.utils.checkpoint`` over the iterations; inference ignores it."""
+    ``remat`` (False, True or "scales") checkpoints each iteration where
+    autograd records the graph: ``torch.utils.checkpoint`` (non-reentrant)
+    keeps only the iteration's input and recomputes the whole iteration in
+    the backward. "scales", the JAX package's default for training, saves
+    its pyramid, GA and fusion outputs there; here it is the same full
+    per-iteration checkpointing as True (PERF.md gives the step's memory
+    with and without it). Under ``torch.no_grad`` nothing is recorded and
+    ``remat`` changes nothing.
+
+    In training every iteration draws its dropout masks from a generator of
+    its own, seeded from ``generator`` before the iteration starts, so a
+    recomputed iteration draws the same masks."""
 
     def __init__(self, out_channels=128, in_channels=512, upsampling_depth=4,
                  _iter=4, fixed_mha=False, remat=False):
@@ -279,18 +316,40 @@ class Recurrent(nn.Module):
             nn.Conv1d(out_channels, out_channels, 1, groups=out_channels),
             nn.PReLU())
 
-    def forward(self, x, n_iter=None, per_utterance=False):
+    def forward(self, x, n_iter=None, per_utterance=False, training=False,
+                generator=None):
         """``n_iter`` overrides the iteration count (early exit: the
         weights are shared, so any depth up to the trained one is valid)."""
         it_count = self.iter if n_iter is None else int(n_iter)
         if not 1 <= it_count <= self.iter:
             raise ValueError(
                 f"n_iter must be in [1, {self.iter}], got {it_count}")
+        if training and generator is None:
+            raise ValueError("training needs a torch.Generator")
+        remat = bool(self.remat) and torch.is_grad_enabled()
         mixture = x
-        x = self.unet(x, per_utterance)
-        for _ in range(it_count - 1):
-            x = self.unet(self._concat(mixture + x), per_utterance)
+        for i in range(it_count):
+            seed = (int(torch.randint(2 ** 62, (), generator=generator,
+                                      device=generator.device))
+                    if training else None)
+            args = (x, mixture, i > 0, per_utterance, training, seed)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._iteration, *args, use_reentrant=False)
+            else:
+                x = self._iteration(*args)
         return x
+
+    def _iteration(self, x, mixture, concat, per_utterance, training, seed):
+        """One iteration; its dropout masks come from a generator on x's
+        device seeded with ``seed``."""
+        gen = None
+        if training:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+        if concat:
+            x = self._concat(mixture + x)
+        return self.unet(x, per_utterance, training, gen)
 
     def _concat(self, inp):
         conv, act = self.concat_block

@@ -1,5 +1,5 @@
 """TDANetBest, the flagship separator (counterpart of
-``tdanet_tpu/models/tdanet_best.py``), inference only.
+``tdanet_tpu/models/tdanet_best.py``).
 
 Lattice pad -> Conv1d frame encoder -> GlobLN -> 1x1 bottleneck ->
 shared-weight recurrent UConvBlock -> PReLU + 1x1 mask head -> ReLU mask x
@@ -86,22 +86,31 @@ class TDANetBest(BaseModel):
             self.decoder.weight, stride=S, padding=K // 2)
         return est[:, :, K - S: est.shape[-1] - (rest + K - S)]
 
-    def forward(self, wav, num_blocks=None, per_utterance=False):
+    def forward(self, wav, num_blocks=None, per_utterance=False, *,
+                training=False, generator=None, compute_dtype=None):
         """wav (T,), (B, T) or (B, 1, T) -> estimates (n_src, T) or
-        (B, n_src, T), in the parameters' dtype.
+        (B, n_src, T), in ``compute_dtype`` or else the parameters' dtype.
 
         ``num_blocks`` overrides the recurrence depth (early exit).
         ``per_utterance=True`` separates every row as if it were alone (see
         MultiHeadAttentionModule); the default keeps the reference's
-        batch-axis attention across rows."""
+        batch-axis attention across rows. ``training=True`` turns on
+        dropout and drop-path, with masks from ``generator``.
+        ``compute_dtype`` (e.g. torch.bfloat16) is the activations' dtype,
+        as the JAX package's: the wav is cast to it, every op casts its
+        parameters to it, the parameters stay in their own dtype (fp32
+        master weights, whose gradients stay fp32) and statistics
+        accumulate in at least fp32; the depthwise ConvNorm kernels read
+        fp32 parameters as they are."""
         was_one_d = wav.ndim == 1
         if was_one_d:
             wav = wav[None]
         if wav.ndim == 3:
             wav = wav.squeeze(1)
-        wav = wav.to(self.encoder.weight.dtype)
+        wav = wav.to(compute_dtype or self.encoder.weight.dtype)
         x, s, rest = self._front(wav)
-        x = self.sm(x, n_iter=num_blocks, per_utterance=per_utterance)
+        x = self.sm(x, n_iter=num_blocks, per_utterance=per_utterance,
+                    training=training, generator=generator)
         est = self._back(x, s, rest)
         return est[0] if was_one_d else est
 

@@ -196,13 +196,30 @@ def adaptive_avg_pool1d(x, out_size: int):
     return F.adaptive_avg_pool1d(x, out_size)
 
 
+def nearest_idx(L: int, out_size: int) -> np.ndarray:
+    """The source row of each output row of a nearest resize from L rows:
+    floor(i * (L / out)) with the product in float32, as torch's fp32
+    kernel and the JAX package compute it (at L=14 -> 110 index 55 maps to
+    7, not the exact 6)."""
+    idx = np.floor(np.arange(out_size, dtype=np.float32)
+                   * np.float32(L / out_size))
+    return np.minimum(idx.astype(np.int64), L - 1)
+
+
 def interpolate_nearest(x, out_size: int):
-    """F.interpolate(mode='nearest') on the last axis. torch floors the
-    source index in float32 (at L=14 -> 110 index 55 maps to 7, not the
-    exact 6); F.interpolate is that kernel, on the CPU and on CUDA."""
-    if x.shape[-1] == out_size:
+    """F.interpolate(mode='nearest') on the last axis, reading the source
+    rows of :func:`nearest_idx`. For fp32 and bf16 that is F.interpolate
+    itself (its float32 index equals nearest_idx for any length below
+    2^12); for float64 F.interpolate takes the index in double (at
+    80 -> 634 it reads row 40 where fp32 reads 39), so float64 gathers the
+    rows of nearest_idx."""
+    L = x.shape[-1]
+    if L == out_size:
         return x
-    return F.interpolate(x, size=out_size, mode="nearest")
+    if x.dtype != torch.float64:
+        return F.interpolate(x, size=out_size, mode="nearest")
+    idx = torch.from_numpy(nearest_idx(L, out_size)).to(x.device)
+    return torch.gather(x, -1, idx.expand(*x.shape[:-1], out_size))
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +256,12 @@ def sinusoidal_pe(length: int, channels: int, dtype=torch.float32,
 
 
 def multi_head_attention(q, k, v, in_proj_weight, in_proj_bias,
-                         out_proj_weight, out_proj_bias, num_heads: int):
-    """torch multi_head_attention_forward numerics on (L, N, E) inputs,
-    inference only. Returns (L, N, E); q is scaled by 1/sqrt(head_dim)."""
+                         out_proj_weight, out_proj_bias, num_heads: int, *,
+                         dropout_rate=0.0, generator=None, training=False):
+    """torch multi_head_attention_forward numerics on (L, N, E) inputs.
+    Returns (L, N, E); q is scaled by 1/sqrt(head_dim). In training the
+    attention weights are dropped at ``dropout_rate`` with masks drawn from
+    ``generator``."""
     L, N, E = q.shape
     S = k.shape[0]
     hd = E // num_heads
@@ -259,7 +279,8 @@ def multi_head_attention(q, k, v, in_proj_weight, in_proj_bias,
     vh = split_heads(vp, S)
     acc = acc_dtype(q.dtype)
     scores = torch.bmm(qh.to(acc), kh.to(acc).transpose(1, 2))
-    attn = torch.softmax(scores, dim=-1)
+    attn = dropout(torch.softmax(scores, dim=-1), generator, dropout_rate,
+                   training)
     ctx = torch.bmm(attn, vh.to(acc)).to(q.dtype)
     ctx = ctx.transpose(0, 1).reshape(L, N, E)
     return F.linear(ctx, out_proj_weight.to(q.dtype),

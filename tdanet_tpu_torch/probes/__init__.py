@@ -1,6 +1,9 @@
 """Card probes: the fused UConvBlock kernels (``uconv_kernel``, ``hybrid``;
 counterparts of ``scripts/probe_uconv_kernel.py`` and
-``scripts/probe_hybrid.py``; ``uconv_halves`` times each half alone) and the micro-kernels of the block's ops
+``scripts/probe_hybrid.py``; ``uconv_halves`` times each half alone), the micro-kernels of the block's ops
 (``mosaic_ops``, ``mosaic_ops2``; counterparts of
-``scripts/probe_mosaic_ops.py`` and ``scripts/probe_mosaic_ops2.py``). Run
-each as ``python -m tdanet_tpu_torch.probes.<name> [batch]``."""
+``scripts/probe_mosaic_ops.py`` and ``scripts/probe_mosaic_ops2.py``),
+``dw_sites`` (#1 at the served forward's sites), and the training slice's
+``dw_backward`` (#1's backward at the recipe's sites) and ``train_step``
+(the recipe's step: time, peak memory, profile). Run each as
+``python -m tdanet_tpu_torch.probes.<name> [options]``."""

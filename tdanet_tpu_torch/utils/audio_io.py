@@ -28,6 +28,17 @@ def read_wav(path, start=0, stop=None, dtype="float32"):
     return data.astype(dtype, copy=False), sr
 
 
+def wav_frames(path) -> int:
+    """Number of frames, from the header where the ``wave`` module reads
+    it (PCM), else by decoding the file (float WAV)."""
+    import wave
+    try:
+        with wave.open(path, "rb") as w:
+            return w.getnframes()
+    except (wave.Error, EOFError):
+        return read_wav(path)[0].shape[0]
+
+
 def write_wav(path, data, sample_rate, subtype="float32"):
     """Write mono/stereo float32 (or int16 when subtype='pcm16')."""
     data = np.asarray(data)

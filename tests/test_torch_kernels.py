@@ -369,3 +369,210 @@ def test_cuda_graph_replay_equals_eager():
             graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager), (T, stride, K)
+
+
+# -- the backward --------------------------------------------------------
+
+@pytest.fixture
+def one_torch_thread():
+    """The tensors here are tiny: one intra-op thread a test, so that
+    parallel test workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+BACKWARD_CASES = [  # (T, stride, K, bias): odd and even T, both strides
+    (37, 1, 5, True), (37, 2, 5, True), (40, 2, 5, False),
+    (40, 1, 1, False), (37, 2, 1, True), (41, 1, 5, False)]
+
+
+def _backward_operands(B, T, C, K, bias, seed, t_major):
+    """fp64 operands in the given layout, and a cotangent dy in the
+    output's layout."""
+    x, w, b, g, be = (torch.from_numpy(a).double() for a in
+                      _inputs(B, T, C, K, bias, seed))
+    if t_major:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    return x, w, (b if bias else None), g, be
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("t_major", [True, False])
+@pytest.mark.parametrize("T,stride,K,bias", BACKWARD_CASES)
+def test_backward_formula_matches_autograd_and_jax(T, stride, K, bias,
+                                                   t_major):
+    """dw_conv_glob_ln_backward_reference against torch autograd through
+    dw_conv_glob_ln_reference and against jax.vjp of the JAX package's own
+    ConvNorm arithmetic (ops.conv1d + ops.glob_ln, what its trainer
+    differentiates), in fp64 at 1e-10 of each gradient's largest
+    magnitude."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from tdanet_tpu import ops as jops
+    B, C = 2, 24
+    x, w, b, g, be = _backward_operands(B, T, C, K, bias, T + K, t_major)
+    T_out = (T - 1) // stride + 1
+    dy = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        (B, T_out, C)))
+    got = dw.dw_conv_glob_ln_backward_reference(dy, x, w, b, g,
+                                                stride=stride, K=K)
+    assert got[0].stride() == x.stride() or not t_major
+    ps = [p.clone().requires_grad_() for p in (x, w, b, g, be)
+          if p is not None]
+    out = dw_conv_glob_ln_reference(ps[0], ps[1], ps[2] if bias else None,
+                                    *ps[-2:], stride=stride, K=K)
+    want = torch.autograd.grad(out, ps, dy)
+    got = [v for v in got if v is not None]
+    for a, r in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=0,
+                                   atol=1e-10 * r.abs().max().item())
+
+    def convnorm(xc, w_, b_, g_, be_):
+        y = jops.conv1d(xc, {"weight": w_, "bias": b_}, stride=stride,
+                        padding=(K - 1) // 2, groups=C)
+        return jops.glob_ln(y, {"gamma": g_, "beta": be_})
+
+    with jax.enable_x64():
+        args = [jnp.asarray(a.numpy()) for a in (
+            x.transpose(1, 2), w, b if bias else torch.zeros(C), g, be)]
+        _, vjp = jax.vjp(convnorm, *args)
+        jgrads = vjp(jnp.asarray(dy.transpose(1, 2).numpy()))
+    jgrads = [np.asarray(jgrads[0]).transpose(0, 2, 1), *map(
+        np.asarray, jgrads[1:])]
+    if not bias:
+        jgrads.pop(2)
+    for a, r in zip(got, jgrads):
+        np.testing.assert_allclose(a.numpy(), r, rtol=0,
+                                   atol=1e-10 * np.abs(r).max())
+
+
+def _plain_launches(monkeypatch, calls):
+    """The Function's two launches as their plain versions, with the
+    kernels' layouts and dtypes (x's layout for out and dx, fp32 (B, 3)
+    statistics, each parameter's gradient in its dtype); each call is
+    recorded."""
+    def launch(x, weight, bias, gamma, beta, stride, K, eps,
+               want_stats=False):
+        calls.append("forward")
+        out = dw._like(x, dw._out_len(x.shape[1], K, stride))
+        out.copy_(dw_conv_glob_ln_reference(x, weight, bias, gamma, beta,
+                                            stride=stride, K=K, eps=eps))
+        stats = dw.stats_reference(x, weight, bias, stride=stride, K=K,
+                                   eps=eps) if want_stats else None
+        return out, stats
+
+    def launch_backward(dy, x, weight, bias, gamma, stats, stride, K):
+        calls.append("backward")
+        inner = 1 if x.stride(1) == 1 else 2
+        assert dy.stride(inner) == 1 and dy.is_contiguous() == (inner == 2)
+        grads = dw.dw_conv_glob_ln_backward_reference(
+            dy, x, weight, bias, gamma, stride=stride, K=K, stats=stats)
+        dx = dw._like(x, x.shape[1])
+        dx.copy_(grads[0])
+        return (dx, *grads[1:])
+
+    monkeypatch.setattr(dw, "_launch", launch)
+    monkeypatch.setattr(dw, "_launch_backward", launch_backward)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("t_major", [True, False])
+def test_autograd_function_wiring_on_cpu(monkeypatch, t_major):
+    """DwConvGlobLnFunction with its launches patched to the plain
+    versions: the gradients of autograd through the plain forward, dx in
+    x's layout and dtype, fp32 parameter gradients for fp32 parameters
+    under fp64 activations, a dy that arrives as an expanded view made
+    contiguous in the output's layout, and the same gradients under
+    torch.utils.checkpoint (forward launched again, backward once)."""
+    calls = []
+    _plain_launches(monkeypatch, calls)
+    x, w, b, g, be = _backward_operands(2, 37, 8, 5, True, 3, t_major)
+    w32, b32, g32, be32 = (p.float().requires_grad_() for p in (w, b, g,
+                                                                 be))
+    x.requires_grad_()
+
+    def run(fn):
+        out = fn(x, w32, b32, g32, be32)
+        # an expanded dy (stride 0): the Function must make it contiguous
+        return torch.autograd.grad(out.sum(), (x, w32, b32, g32, be32))
+
+    fn = (lambda *a: dw.DwConvGlobLnFunction.apply(*a, 2, 5, 1e-8))
+    got = run(fn)
+    assert calls == ["forward", "backward"]
+    assert got[0].dtype == torch.float64 and got[0].stride() == x.stride()
+    assert all(v.dtype == torch.float32 for v in got[1:])
+    want = run(lambda *a: dw_conv_glob_ln_reference(*a, stride=2, K=5))
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=1e-6, atol=1e-6)
+    calls.clear()
+    again = run(lambda *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False))
+    assert calls == ["forward", "forward", "backward"]
+    for a, r in zip(again, got):
+        assert torch.equal(a, r)
+
+
+def test_backward_wrapper_on_cpu_takes_the_plain_version():
+    x, w, b, g, be = _backward_operands(1, 33, 8, 5, True, 1, True)
+    _, stats = dw.forward_with_stats(x, w, b, g, be, stride=2)
+    dy = torch.randn(1, 17, 8, dtype=torch.float64)
+    before = dw.dw_conv_glob_ln_backward.launches
+    got = dw.dw_conv_glob_ln_backward(dy, x, w, b, g, stats, stride=2)
+    want = dw.dw_conv_glob_ln_backward_reference(dy, x, w, b, g, stride=2)
+    assert dw.dw_conv_glob_ln_backward.launches == before
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError):
+        dw.dw_conv_glob_ln_backward(dy[:, :5], x, w, b, g, stats, stride=2)
+
+
+@pytest.mark.gpu
+def test_cuda_backward_matches_plain():
+    """The backward kernel against the plain backward (fp32 and bf16
+    activations over fp32 parameters, both layouts, odd T), a rerun equal
+    bit for bit; and the gradients through dw_conv_glob_ln on the card
+    (one forward and one backward launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    for T, stride, K, bias in [(3010, 1, 5, True), (1505, 2, 5, True),
+                               (189, 1, 1, False), (753, 1, 5, False)]:
+        for t_major in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w, b, g, be = (None if p is None else p.float().cuda()
+                                  for p in _backward_operands(
+                                      2, T, 512, K, bias, T, t_major))
+                x = x.to(dtype)
+                x.requires_grad_()
+                for p in (w, b, g, be):
+                    if p is not None:
+                        p.requires_grad_()
+                f0, b0 = (dw_conv_glob_ln.launches,
+                          dw.dw_conv_glob_ln_backward.launches)
+                out = dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K)
+                dy = torch.randn(out.shape, device="cuda").to(dtype)
+                ps = [p for p in (x, w, b, g, be) if p is not None]
+                got = torch.autograd.grad(out, ps, dy)
+                torch.cuda.synchronize()
+                assert (dw_conv_glob_ln.launches - f0,
+                        dw.dw_conv_glob_ln_backward.launches - b0) == (1, 1)
+                assert got[0].dtype == dtype
+                assert got[0].stride() == x.stride()
+                ref = dw.dw_conv_glob_ln_backward_reference(
+                    dy.float(), x.detach().float(), w, b, g, stride=stride,
+                    K=K)
+                ref = [r for r in ref if r is not None]
+                for a, r in zip(got, ref):
+                    if dtype == torch.float32:
+                        err = (a - r).abs().max().item()
+                        assert err <= 1e-4 * r.abs().max().item()
+                    else:
+                        snr = 10 * torch.log10(r.square().sum() / (
+                            a.float() - r).square().sum())
+                        assert snr.item() >= 40
+                again = torch.autograd.grad(
+                    dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K),
+                    ps, dy)
+                assert all(torch.equal(a, c) for a, c in zip(got, again))
