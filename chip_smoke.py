@@ -8,7 +8,9 @@ exit code is not 0:
      TF32 off for convolutions and matrix products;
   2. build the CUDA kernels from tdanet_tpu_torch/csrc; print the
      registers of every kernel, and the occupancy figure and the grid of
-     dw_conv_glob_ln's cooperative launch at each site shape;
+     dw_conv_glob_ln's cooperative launch at each site shape; print the
+     backward kernel's plan at the recipe's K5 stride-1 sites (grid,
+     slots, shared memory, the planned share of tiles staged again);
   3. dw_conv_glob_ln against its plain PyTorch version at every main-path
      site shape, B 1 and 4, in the model's (B, C, T) layout and in
      (B, T, C): fp32, bf16 with bf16 and with fp32 parameters; a second
@@ -88,10 +90,12 @@ exit code is not 0:
      forward) and a resume that runs one more epoch; then 20 steps on one
      fixed batch, whose last loss must be below the first;
   17. times: the backward kernel against its plain version at the finest
-     site (B 8 bf16, B 2 fp32) and summed over a step's 464 launches,
-     beside the bound; the train step (median of 5 after 2 warm-up steps)
-     and its peak allocated memory with and without checkpointing; one
-     profiled step (probes/train_step.py).
+     site (B 8 bf16, B 2 fp32) and at each of the 14 site shapes a step
+     runs (us, GB/s, share of the bound, planned share staged twice), summed
+     over a step's 464 launches, beside the bound; the train step (median
+     of 5 after 2 warm-up steps) and its peak allocated memory with and
+     without checkpointing; one profiled step (probes/train_step.py),
+     with the copies of dy the autograd Function made in it.
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
 the result line.
@@ -640,6 +644,19 @@ def probe_entry(name, script, line, rows):
         "library_ms": sum(library) if library else None, "variants": rows}
 
 
+def print_backward_plans():
+    """The backward kernel's plan, from its library, at the recipe's K5
+    stride-1 sites, B 8 bf16 (T innermost)."""
+    for T in dw_backward.recipe_scales():
+        rows = dw.backward_rows(T, 1, True)
+        bp = dw.backward_plan(1, 5, 1, True, rows, TRAIN_BATCH, T, C, 0)
+        print(f"  backward B={TRAIN_BATCH} T={T} K5 s1 bf16: {rows} rows a "
+              f"thread, grid {bp.grid}, {bp.n_tiles} tiles, {bp.max_slots} "
+              f"slots of {bp.slot} B, {bp.smem} B of shared memory; planned:"
+              f" {100 * (1 - bp.kept / bp.n_tiles):.1f}% of the tiles staged"
+              " again in phase 2")
+
+
 def dw_counts():
     return dw_conv_glob_ln.launches, dw_conv_glob_ln_backward.launches
 
@@ -819,7 +836,7 @@ def drive_train_slice(card):
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = drive_training(tmp)
     phase(f"17 times (card: {card})")
-    finest, step_sums = dw_backward.time_all(gen)
+    finest, step_sums, site_rows = dw_backward.time_all(gen)
     steps = [train_step.time_steps(TRAIN_BATCH, remat)
              for remat in (True, False)]
     prof = train_step.profile_step(TRAIN_BATCH, True)
@@ -841,8 +858,13 @@ def drive_train_slice(card):
         "bound_ms_b2_fp32": finest[1]["bound_ms"],
         "step_ms": step_sums["ms"], "step_plain_ms": step_sums["plain_ms"],
         "step_bound_ms": step_sums["bound_ms"],
+        "step_sites": [{k: r[k] for k in ("T", "K", "stride", "bias", "ms",
+                                          "bound_ms")}
+                       for r in site_rows],
         "step_profiled_ms": prof["backward_ms"],
         "step_profiled_forward_ms": prof["forward_ms"],
+        "step_profiled_device_ms": prof["device_ms"],
+        "step_dy_copies": prof["dy_copies"],
         "train_step_ms": {str(r["remat"]): r["ms"] for r in steps},
         "train_step_peak_gib": {str(r["remat"]): r["peak_bytes"] / 2 ** 30
                                 for r in steps}}, train_launches
@@ -888,6 +910,7 @@ def main():
               f"{cap // sms} CTAs an SM x {sms} SMs = {cap} co-resident CTAs;"
               f" grid at B=1 T={SCALES}: {grids}, at B=24 T=2010: "
               f"{dw.plan(24, (2010 - 1) // stride + 1, C, cap).grid}")
+    print_backward_plans()
     torch.cuda.synchronize()
 
     phase("3 dw_conv_glob_ln against plain (C=512, both layouts)")

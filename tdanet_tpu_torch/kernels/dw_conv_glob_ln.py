@@ -33,11 +33,10 @@ from tdanet_tpu_torch.ops import basic as ops
 
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 TILE_T, TILE_C = 128, 32  # a tile: output rows x channels (csrc kTileT, kTileC)
-BACKWARD_TILE_T = 64      # the backward kernel's output rows a tile
 
 
 class Plan(NamedTuple):
-    """The kernel's tiles and grid for one call."""
+    """The forward kernel's tiles and grid for one call."""
     tiles_t: int     # tiles of a sample along T_out
     tiles_c: int     # ... along C
     per_sample: int  # tiles_t * tiles_c
@@ -45,19 +44,62 @@ class Plan(NamedTuple):
     grid: int        # CTAs: min(capacity, n_tiles)
 
 
-def plan(B, T_out, C, capacity, tile_t=TILE_T):
-    """The tile and grid plan of one launch. Tiles of ``tile_t`` output
-    rows (the forward's 128, the backward's 64) by 32 channels are
-    numbered sample by sample, channel tile by channel tile, time tile
-    fastest; the grid is at most ``capacity`` (the CTAs the card holds at
-    once) and at most the tiles, and CTA j owns tiles [j N / G,
-    (j+1) N / G)."""
+def plan(B, T_out, C, capacity):
+    """The forward kernel's tile and grid plan for one launch. Tiles of
+    128 output rows by 32 channels are numbered sample by sample, channel
+    tile by channel tile, time tile fastest; the grid is at most
+    ``capacity`` (the CTAs the card holds at once) and at most the tiles,
+    and CTA j owns tiles [j N / G, (j+1) N / G)."""
     if capacity < 1:
         raise ValueError(f"capacity must be at least 1, got {capacity}")
-    tiles_t, tiles_c = -(-T_out // tile_t), -(-C // TILE_C)
+    tiles_t, tiles_c = -(-T_out // TILE_T), -(-C // TILE_C)
     n_tiles = B * tiles_t * tiles_c
     return Plan(tiles_t, tiles_c, tiles_t * tiles_c, n_tiles,
                 min(capacity, n_tiles))
+
+
+class BackwardPlan(NamedTuple):
+    """One launch of the backward kernel as its library plans it
+    (csrc/dw_conv_glob_ln_backward.cu make_plan)."""
+    tile_t: int      # output rows a tile
+    tile_c: int      # channels a tile
+    slot: int        # bytes of a tile's slot in shared memory
+    fixed: int       # bytes of shared memory before the slots
+    n_tiles: int
+    grid: int        # CTAs: min(capacity, n_tiles)
+    max_slots: int   # tile slots a CTA's shared memory holds
+    segs: int        # channel tiles one CTA's run touches, at most
+    smem: int        # dynamic shared memory of the launch, bytes
+    kept: int        # tiles kept in shared memory from phase 1 to 2
+    cparts: int      # floats of the per-(CTA, channel tile) sums
+
+
+def backward_rows(T_out, stride, t_contig):
+    """The output rows a thread of the backward kernel owns: 16 at the
+    stride-1 sites where T is innermost (each tile's fixed costs over
+    twice the rows), unless one tile of 8 rows a thread (256) already
+    covers T_out; 8 elsewhere, the only instance there. On an H100, 16
+    rows took 6-24% less time than 8 at the training recipe's T 3010-377
+    stride-1 sites and 11% more at T 189 (``probes/dw_backward.py
+    --rows``)."""
+    return 16 if t_contig and stride == 1 and T_out > 256 else 8
+
+
+@lru_cache(maxsize=4096)
+def backward_plan(x_bf16, K, stride, t_contig, rows, B, T_out, C,
+                  device_index):
+    """The library's :class:`BackwardPlan` for the instance (storage, K,
+    stride, layout, ``rows`` a thread) at (B, T_out, C), with the grid the
+    card ``device_index`` holds at once."""
+    cap = backward_capacity(x_bf16, K, stride, t_contig, rows, device_index)
+    out = (ctypes.c_longlong * len(BackwardPlan._fields))()
+    err = _backward_library().dw_conv_glob_ln_backward_plan(
+        x_bf16, K, stride, int(t_contig), rows, B, T_out, C, cap, out)
+    if err != 0:
+        raise RuntimeError(f"dw_conv_glob_ln_backward has no plan for "
+                           f"{x_bf16, K, stride, t_contig, rows} at "
+                           f"{B, T_out, C}: CUDA error {err}")
+    return BackwardPlan(*out)
 
 
 def dw_conv_glob_ln_reference(x, weight, bias, gamma, beta, *, stride=1,
@@ -219,11 +261,13 @@ def _launch(x, weight, bias, gamma, beta, stride, K, eps, want_stats=False):
     return out, stats
 
 
-def _launch_backward(dy, x, weight, bias, gamma, stats, stride, K):
-    """One launch of the backward kernel. dy must have the forward
-    output's layout (T innermost exactly when it is x's). Returns (dx,
-    dweight, dbias or None, dgamma, dbeta): dx in x's dtype and layout,
-    each parameter's gradient in that parameter's dtype."""
+def _launch_backward(dy, x, weight, bias, gamma, stats, stride, K,
+                     rows=None):
+    """One launch of the backward kernel, with ``rows`` a thread
+    (:func:`backward_rows` when None). dy has the forward output's
+    innermost axis (T exactly when it is x's), with its own strides.
+    Returns (dx, dweight, dbias or None, dgamma, dbeta): dx in x's dtype
+    and layout, each parameter's gradient in that parameter's dtype."""
     B, T, C = x.shape
     T_out = dy.shape[1]
     dev = x.device
@@ -233,19 +277,19 @@ def _launch_backward(dy, x, weight, bias, gamma, stats, stride, K):
     f32 = dict(dtype=torch.float32, device=dev)
     dw, db, dg, dbe = (torch.empty((C, K), **f32), torch.empty(C, **f32),
                        torch.empty(C, **f32), torch.empty(C, **f32))
-    lib = _backward_library()
-    grid = plan(B, T_out, C, backward_capacity(dev.index),
-                BACKWARD_TILE_T)
-    parts = torch.empty(2 * B * grid.grid, dtype=torch.float64, device=dev)
-    tile_parts = torch.empty(
-        lib.dw_conv_glob_ln_backward_tile_floats(grid.n_tiles), **f32)
-    err = lib.dw_conv_glob_ln_backward_launch(
+    x_bf16 = _STORAGE[x.dtype]
+    rows = rows or backward_rows(T_out, stride, t_contig)
+    bp = backward_plan(x_bf16, K, stride, t_contig, rows, B, T_out, C,
+                       dev.index)
+    parts = torch.empty(2 * B * bp.grid, dtype=torch.float64, device=dev)
+    cparts = torch.empty(bp.cparts, **f32)
+    err = _backward_library().dw_conv_glob_ln_backward_launch(
         x.data_ptr(), dy.data_ptr(), w.data_ptr(),
         None if b is None else b.data_ptr(), g.data_ptr(), stats.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), db.data_ptr(), dg.data_ptr(),
-        dbe.data_ptr(), parts.data_ptr(), tile_parts.data_ptr(), B, T, C,
+        dbe.data_ptr(), parts.data_ptr(), cparts.data_ptr(), B, T, C,
         T_out, K, stride, *x.stride(), *dy.stride(), *dx.stride(),
-        int(t_contig), _STORAGE[x.dtype], p_bf16, grid.grid,
+        int(t_contig), x_bf16, p_bf16, rows, bp.grid,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
@@ -270,10 +314,13 @@ def capacity(x_bf16, p_bf16, K, stride, t_contig, device_index):
 
 
 @lru_cache(maxsize=None)
-def backward_capacity(device_index):
-    """The most CTAs of the backward kernel the card holds at once."""
+def backward_capacity(x_bf16, K, stride, t_contig, rows, device_index):
+    """The most CTAs of the backward kernel for this storage, K, stride,
+    layout and rows a thread that the card holds at once, at the most
+    shared memory a CTA takes (one an SM)."""
     with torch.cuda.device(device_index):
-        n = _backward_library().dw_conv_glob_ln_backward_capacity()
+        n = _backward_library().dw_conv_glob_ln_backward_capacity(
+            x_bf16, K, stride, int(t_contig), rows)
     if n < 1:
         raise RuntimeError(
             f"dw_conv_glob_ln_backward occupancy query failed: {n}")
@@ -296,12 +343,12 @@ def _library():
 def _backward_library():
     lib = _build.load("dw_conv_glob_ln_backward")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dw_conv_glob_ln_backward_tile_floats.argtypes = [i]
-    lib.dw_conv_glob_ln_backward_tile_floats.restype = ll
-    lib.dw_conv_glob_ln_backward_capacity.argtypes = []
+    lib.dw_conv_glob_ln_backward_capacity.argtypes = [i] * 5
     lib.dw_conv_glob_ln_backward_capacity.restype = i
+    lib.dw_conv_glob_ln_backward_plan.argtypes = [i] * 9 + [p]
+    lib.dw_conv_glob_ln_backward_plan.restype = i
     lib.dw_conv_glob_ln_backward_launch.argtypes = (
-        [p] * 13 + [i] * 6 + [ll] * 9 + [i] * 4 + [p])
+        [p] * 13 + [i] * 6 + [ll] * 9 + [i] * 5 + [p])
     lib.dw_conv_glob_ln_backward_launch.restype = i
     return lib
 
@@ -309,9 +356,14 @@ def _backward_library():
 class DwConvGlobLnFunction(torch.autograd.Function):
     """The forward kernel with its statistics saved, and the backward
     kernel as its gradient (both on the current stream, the backward in
-    autograd's thread). dy is made contiguous in the output's layout; dx
-    comes back in x's layout and dtype, each parameter's gradient in the
-    parameter's own dtype (fp32 master weights under bf16 activations)."""
+    autograd's thread). The kernel reads dy with its own strides when its
+    innermost axis is the output's (the training step's every dy); any
+    other dy is first made contiguous in the output's layout, and
+    ``dy_copies`` counts those copies. dx comes back in x's layout and
+    dtype, each parameter's gradient in the parameter's own dtype (fp32
+    master weights under bf16 activations)."""
+
+    dy_copies = 0
 
     @staticmethod
     def forward(ctx, x, weight, bias, gamma, beta, stride, K, eps):
@@ -324,10 +376,13 @@ class DwConvGlobLnFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight, bias, gamma, stats = ctx.saved_tensors
-        if x.stride(1) == 1:
-            dy = dy.transpose(1, 2).contiguous().transpose(1, 2)
-        else:
-            dy = dy.contiguous()
+        inner = 1 if x.stride(1) == 1 else 2
+        if dy.stride(inner) != 1 or min(dy.stride()) < 0:
+            DwConvGlobLnFunction.dy_copies += 1
+            if inner == 1:
+                dy = dy.transpose(1, 2).contiguous().transpose(1, 2)
+            else:
+                dy = dy.contiguous()
         grads = _launch_backward(dy, x, weight, bias, gamma, stats,
                                  ctx.stride, ctx.K)
         return (*grads, None, None, None)
@@ -388,8 +443,9 @@ def dw_conv_glob_ln_backward(dy, x, weight, bias, gamma, stats, *, stride=1,
     """The gradients of :func:`dw_conv_glob_ln` at x, from the forward's
     per-sample statistics ``stats`` (B, 3) (:func:`forward_with_stats`):
     (dx, dweight, dbias or None, dgamma, dbeta). dy (B, T_out, C) must
-    have the output's layout. On a CUDA tensor it launches the backward
-    kernel or raises; on a CPU tensor it computes
+    have the output's innermost axis (its other strides are its own). On
+    a CUDA tensor it launches the backward kernel or raises; on a CPU
+    tensor it computes
     :func:`dw_conv_glob_ln_backward_reference`. ``launches`` counts the
     kernel's launches."""
     _check(x, weight, bias, gamma, gamma, stride, K)
@@ -404,8 +460,8 @@ def dw_conv_glob_ln_backward(dy, x, weight, bias, gamma, stats, *, stride=1,
         raise RuntimeError(f"no dw_conv_glob_ln_backward for {x.device}")
     if x.dtype not in _STORAGE:
         raise TypeError(f"the CUDA kernel stores fp32 or bf16, got {x.dtype}")
-    if (dy.stride(1) == 1) != (x.stride(1) == 1) or min(dy.stride()) < 0:
-        raise ValueError("dy must have the forward output's layout")
+    if dy.stride(1 if x.stride(1) == 1 else 2) != 1 or min(dy.stride()) < 0:
+        raise ValueError("dy must have the forward output's innermost axis")
     with torch.cuda.device(x.device):
         return _launch_backward(dy, x, weight, bias, gamma, stats, stride, K)
 

@@ -2,8 +2,20 @@
 recipe's depthwise sites: each against its plain version, and its time
 beside the plain version's and the least time the card could take.
 
-    python -m tdanet_tpu_torch.probes.dw_backward [--check-only]
-        [--out record.json]
+    python -m tdanet_tpu_torch.probes.dw_backward [--check-only | --no-check]
+        [--no-plain] [--rows] [--out record.json]
+
+Every time is device time from CUDA-graph replay. For each of the 14
+site shapes a step runs, a row gives the kernel's us, its rate over the
+bytes it must move (GB/s), its share of the bound and the planned share
+of tiles staged a second time in phase 2 (those that do not stay in
+shared memory, from the library's plan: whether the L2 or device memory
+serves them is not measured; "n/a" on a tree whose wrapper has no
+``backward_plan``). ``--rows`` times instead, at each stride-1 site shape
+of the step, the instance of 8 rows a thread against that of 16 (8, 16,
+16, 8). ``--no-check --no-plain`` times an older tree: unpack its
+``tdanet_tpu_torch`` under ``build/``, copy this file into its
+``probes/`` and run it there.
 
 The recipe is ``configs/tdanet.yml``: TDANetBest out 128, in 512, depth 5,
 4 ms encoder, 8 kHz, 3 s segments, batch 8, bf16 activations over fp32
@@ -24,6 +36,7 @@ import sys
 
 import torch
 
+from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
     dw_conv_glob_ln_backward, dw_conv_glob_ln_backward_reference,
     forward_with_stats)
@@ -156,7 +169,21 @@ def site_bound(B, T, K, stride, bias, elem):
     return ms, by, n_bytes
 
 
-def time_site(B, T, K, stride, bias, gen, dtype):
+def planned_restaged(B, T, K, stride, t_contig, elem):
+    """The share of a launch's tiles that the library's plan stages a
+    second time in phase 2 (each CTA's tiles past those it keeps in
+    shared memory); None where the wrapper has no ``backward_plan``."""
+    plan_of = getattr(dw, "backward_plan", None)
+    if plan_of is None:
+        return None
+    T_out = (T - 1) // stride + 1
+    bp = plan_of(int(elem == 2), K, stride, t_contig,
+                 dw.backward_rows(T_out, stride, t_contig), B, T_out, C,
+                 torch.cuda.current_device())
+    return 1 - bp.kept / bp.n_tiles
+
+
+def time_site(B, T, K, stride, bias, gen, dtype, plain=True):
     """Device ms of the kernel and of the plain backward (CUDA-graph
     replay) and the bound at one site shape. Returns a row."""
     x, w, b, g, be, dy = operands(B, T, K, stride, bias, gen, dtype)
@@ -165,18 +192,24 @@ def time_site(B, T, K, stride, bias, gen, dtype):
         _, stats = forward_with_stats(x, w, b, g, be, **kw)
         kern = graph_time(lambda: dw_conv_glob_ln_backward(
             dy, x, w, b, g, stats, **kw), reps=20)
-        plain = graph_time(lambda: dw_conv_glob_ln_backward_reference(
-            dy, x, w, b, g, stats=stats, **kw), reps=20)
+        pms = graph_time(lambda: dw_conv_glob_ln_backward_reference(
+            dy, x, w, b, g, stats=stats, **kw), reps=20)[0] if plain \
+            else None
     bms, by, n_bytes = site_bound(B, T, K, stride, bias,
                                   x.element_size())
+    again = planned_restaged(B, T, K, stride, True, x.element_size())
     row = dict(B=B, T=T, K=K, stride=stride, bias=bias,
-               dtype=str(dtype)[6:], ms=kern[0], plain_ms=plain[0],
-               bound_ms=bms, bound_by=by, bytes=n_bytes)
-    print(f"backward B={B} T={T} K={K} s={stride} bias={bias} "
-          f"{row['dtype']}: kernel {kern[0] * 1e3:.2f} us, plain "
-          f"{plain[0] * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}: "
-          f"{n_bytes / 1e6:.2f} MB), {100 * bms / kern[0]:.0f}% of it "
-          f"[{card_line()}]", flush=True)
+               dtype=str(dtype)[6:], ms=kern[0], plain_ms=pms,
+               bound_ms=bms, bound_by=by, bytes=n_bytes,
+               gb_s=n_bytes / kern[0] / 1e6, planned_restaged=again)
+    print(f"backward B={B} T={T} K={K} s={stride} bias={bias!s:5} "
+          f"{row['dtype']}: kernel {kern[0] * 1e3:.2f} us "
+          f"({row['gb_s']:.0f} GB/s), plain "
+          + ("-" if pms is None else f"{pms * 1e3:.2f}")
+          + f" us, bound {bms * 1e3:.2f} us ({by}: {n_bytes / 1e6:.2f} MB),"
+          f" {100 * bms / kern[0]:.0f}% of it; tiles staged twice "
+          "(planned): " + ("n/a" if again is None else f"{100 * again:.1f}%")
+          + f" [{card_line()}]", flush=True)
     return row
 
 
@@ -191,28 +224,69 @@ def step_sites(depth=5, num_blocks=16):
     return (sites[:dead] + sites[dead + 3:]) * num_blocks
 
 
-def time_all(gen):
-    """The finest K5 stride-1 site at B 8 bf16 and B 2 fp32, then every
-    site shape at B 8 bf16 summed over a step's 464 launches. Returns
-    (finest rows, step sums {ms, plain_ms, bound_ms})."""
+def time_all(gen, plain=True):
+    """The finest K5 stride-1 site at B 8 bf16 and B 2 fp32, then each of
+    the 14 site shapes a step runs at B 8 bf16, summed over the step's 464
+    launches. Returns (finest rows, step sums {ms, plain_ms, bound_ms},
+    the 14 rows)."""
     T0 = recipe_scales()[0]
-    finest = [time_site(8, T0, 5, 1, True, gen, torch.bfloat16),
-              time_site(2, T0, 5, 1, True, gen, torch.float32)]
+    finest = [time_site(8, T0, 5, 1, True, gen, torch.bfloat16, plain),
+              time_site(2, T0, 5, 1, True, gen, torch.float32, plain)]
     rows = {}
-    for T, K, s, bias in sorted(set(step_sites())):
+    for T, K, s, bias in sorted(set(step_sites()), reverse=True):
         rows[(T, K, s, bias)] = time_site(8, T, K, s, bias, gen,
-                                          torch.bfloat16)
-    sums = {k: sum(rows[site][k] for site in step_sites())
-            for k in ("ms", "plain_ms", "bound_ms")}
+                                          torch.bfloat16, plain)
+    keys = ("ms", "plain_ms", "bound_ms") if plain else ("ms", "bound_ms")
+    sums = {k: sum(rows[site][k] for site in step_sites()) for k in keys}
     print(f"one step's {len(step_sites())} backward launches at B=8 bf16, "
-          f"summed: kernel {sums['ms']:.3f} ms, plain {sums['plain_ms']:.3f}"
-          f" ms, bound {sums['bound_ms']:.3f} ms [{card_line()}]")
-    return finest, sums
+          f"summed: kernel {sums['ms']:.3f} ms, "
+          + (f"plain {sums['plain_ms']:.3f} ms, " if plain else "")
+          + f"bound {sums['bound_ms']:.3f} ms [{card_line()}]")
+    return finest, sums, list(rows.values())
+
+
+def compare_rows(gen):
+    """At each stride-1 site shape of a step (B 8 bf16, T innermost), the
+    instance of 8 rows a thread against that of 16, timed in turns (8,
+    16, 16, 8), and each summed over the step's launches of those shapes.
+    Returns the rows: (T, K, bias, us of 8, us of 16, the wrapper's
+    choice)."""
+    shapes = sorted({site for site in step_sites() if site[2] == 1},
+                    reverse=True)
+    out = []
+    for T, K, _, bias in shapes:
+        x, w, b, g, be, dy = operands(8, T, K, 1, bias, gen, torch.bfloat16)
+        with torch.no_grad():
+            _, stats = forward_with_stats(x, w, b, g, be, stride=1, K=K)
+            times = {8: [], 16: []}
+            for rows in (8, 16, 16, 8):
+                times[rows].append(graph_time(
+                    lambda: dw._launch_backward(dy, x, w, b, g, stats, 1, K,
+                                                rows), reps=20)[0])
+        us8, us16 = (1e3 * min(times[r]) for r in (8, 16))
+        pick = dw.backward_rows(T, 1, True)
+        out.append(dict(T=T, K=K, bias=bias, us8=us8, us16=us16, pick=pick,
+                        us8_runs=[1e3 * t for t in times[8]],
+                        us16_runs=[1e3 * t for t in times[16]]))
+        print(f"rows a thread, B=8 T={T} K={K} s=1 bias={bias!s:5} bf16: "
+              f"8 rows {us8:.2f} us, 16 rows {us16:.2f} us (each the "
+              f"lower of two; the wrapper takes {pick}) [{card_line()}]",
+              flush=True)
+    n = {site: step_sites().count(site) for site in
+         ((r["T"], r["K"], 1, r["bias"]) for r in out)}
+    for key in ("us8", "us16"):
+        total = sum(r[key] * n[(r["T"], r["K"], 1, r["bias"])] for r in out)
+        print(f"one step's {sum(n.values())} stride-1 launches with "
+              f"{key[2:]} rows a thread: {total / 1e3:.3f} ms")
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--no-check", action="store_true")
+    ap.add_argument("--no-plain", action="store_true")
+    ap.add_argument("--rows", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -221,11 +295,16 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line())
     gen = torch.Generator().manual_seed(0)
-    worst, worst_abs, low = check_all(gen)
-    record = {"card": card_line(), "fp32_worst": worst,
-              "fp32_max_abs": worst_abs, "bf16_lowest_db": low}
-    if not args.check_only:
-        record["finest"], record["step"] = time_all(gen)
+    record = {"card": card_line()}
+    if args.rows:
+        record["rows"] = compare_rows(gen)
+    elif not args.no_check:
+        worst, worst_abs, low = check_all(gen)
+        record.update(fp32_worst=worst, fp32_max_abs=worst_abs,
+                      bf16_lowest_db=low)
+    if not (args.check_only or args.rows):
+        record["finest"], record["step"], record["sites"] = time_all(
+            gen, plain=not args.no_plain)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
-    dw_conv_glob_ln, dw_conv_glob_ln_backward)
+    DwConvGlobLnFunction, dw_conv_glob_ln, dw_conv_glob_ln_backward)
 from tdanet_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
 from tdanet_tpu_torch.system.optimizers import make_optimizer
 from tdanet_tpu_torch.system.trainer import (create_train_state,
@@ -114,6 +114,7 @@ def profile_step(B, remat):
     mix, src = tone_batch(B)
     state, loss = step(state, mix, src, torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
+    copies = DwConvGlobLnFunction.dy_copies
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -133,6 +134,7 @@ def profile_step(B, remat):
                   forward_ms=sum(dev(e) for e in fwd),
                   backward_kernels=sum(e.count for e in bwd),
                   backward_ms=sum(dev(e) for e in bwd),
+                  dy_copies=DwConvGlobLnFunction.dy_copies - copies,
                   top=[(dev(e), e.count, e.key[:90]) for e in
                        sorted(events, key=dev, reverse=True)[:10]])
     print(f"profiled train step B={B} checkpointing "
@@ -141,7 +143,8 @@ def profile_step(B, remat):
           f"(profiler on); #1 forward {result['forward_kernels']} kernels "
           f"{result['forward_ms']:.2f} ms, backward "
           f"{result['backward_kernels']} kernels {result['backward_ms']:.2f}"
-          f" ms [{card_line()}]")
+          f" ms; dy copied to x's layout {result['dy_copies']} times "
+          f"[{card_line()}]")
     for ms, n, key in result["top"]:
         print(f"  {ms:8.3f} ms {n:5d}x {key}")
     del state, step

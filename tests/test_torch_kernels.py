@@ -531,14 +531,18 @@ def test_backward_wrapper_on_cpu_takes_the_plain_version():
 @pytest.mark.gpu
 def test_cuda_backward_matches_plain():
     """The backward kernel against the plain backward (fp32 and bf16
-    activations over fp32 parameters, both layouts, odd T), a rerun equal
-    bit for bit; and the gradients through dw_conv_glob_ln on the card
-    (one forward and one backward launch)."""
+    activations over fp32 parameters, both layouts, odd T, K 1/3/5/7 at
+    both strides, 8 and 16 rows a thread), a rerun equal bit for bit; and
+    the gradients through dw_conv_glob_ln on the card (one forward and one
+    backward launch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     for T, stride, K, bias in [(3010, 1, 5, True), (1505, 2, 5, True),
-                               (189, 1, 1, False), (753, 1, 5, False)]:
+                               (189, 1, 1, False), (753, 1, 5, False),
+                               (1505, 1, 3, False), (189, 1, 3, True),
+                               (377, 2, 3, True), (1505, 1, 7, True),
+                               (189, 1, 7, False), (753, 2, 7, True)]:
         for t_major in (True, False):
             for dtype in (torch.float32, torch.bfloat16):
                 x, w, b, g, be = (None if p is None else p.float().cuda()
