@@ -96,6 +96,35 @@ exit code is not 0:
      of 5 after 2 warm-up steps) and its peak allocated memory with and
      without checkpointing; one profiled step (probes/train_step.py),
      with the copies of dy the autograd Function made in it.
+  18. the corpus eval (probes/eval_path.py) on phase 16's trained
+     best_model.pth: 24 synthetic utterances of 2.4-6 s from three cells of
+     the stride lattice (11, 8, 5); first #1 against plain at every site
+     of the three bucket lengths at 1-8 rows (fp32, (B,C,T), phase 3's
+     limit); then tdanet_tpu_torch.audio_test.main as a stream (batch 8),
+     a loop (batch 1), at --num_blocks 8, and progressively
+     (--progressive_depth 8 at thresholds 0, inf and the median delta),
+     each from a launch count of 0, each run's #1 sites all among those
+     checked: every metrics.csv 24 rows + avg, std, finite; stream against
+     loop (estimates >= 60 dB, metrics within 0.01 dB), progressive at 0
+     against the stream, at inf against depth 8, and at the median each
+     utterance against the stream (escalated) or depth 8 (>= 60 dB); #1's
+     launches exactly 32 x the block iterations of each run's batches; the
+     longest utterance against CPU float64 (>= 60 dB, SI-SNRi within
+     0.01 dB); wall times, realtime factors, the stream's time split and
+     the progressive census printed;
+  19. long-form CSS: #1 against plain at every site of a 4 s segment at
+     1-8 rows; tdanet_tpu_torch.audio_test_css.main on two recordings of
+     about 30 s and 47 s, 4 s segments, overlap 0.25, plain and
+     progressive (depth 8, at the median of stage 1's segment deltas):
+     every stream of its input's length, each run's #1 sites among those
+     checked, #1's launches
+     exactly 32 x the block iterations of the batches of 8 segments (stage
+     2's from the escalations stage 1's deltas predict), the plain run's
+     30 s recording against float64 stitching on the CPU (the same swap
+     decisions, >= 60 dB), the plain run against stitching of its segments
+     separated again on the card (>= 100 dB) and the progressive run
+     against stitching of its segments at full depth where escalated, else
+     at depth 8 (>= 60 dB); the realtime factor printed.
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
 the result line.
@@ -128,8 +157,8 @@ from tdanet_tpu_torch.models import (
     BaseModel, SwinTransformer, SwinTransformerSys, TDANetBest)
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
-    dw_backward, dw_sites, hybrid, mosaic_ops, mosaic_ops2, train_step,
-    uconv_halves, uconv_kernel)
+    dw_backward, dw_sites, eval_path, hybrid, mosaic_ops, mosaic_ops2,
+    train_step, uconv_halves, uconv_kernel)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.utils import separate, separate_batched
 from tdanet_tpu_torch.utils.timing import (
@@ -824,17 +853,17 @@ def drive_training(tmp):
     return launches
 
 
-def drive_train_slice(card):
-    """Phases 14-17. Returns the backward kernel's entry of the kernels
-    line and #1's (forward, backward) launches on the training path."""
+def drive_train_slice(card, tmp):
+    """Phases 14-17; phase 16's experiment is left under ``tmp`` for the
+    eval phases. Returns the backward kernel's entry of the kernels line
+    and #1's (forward, backward) launches on the training path."""
     gen = torch.Generator().manual_seed(14)
     phase("14 the backward of dw_conv_glob_ln against plain (recipe sites)")
     bwd_worst, bwd_abs, bwd_low = dw_backward.check_all(gen)
     phase("15 gradients of the full-width recipe model")
     grad_snr = drive_gradients()
     phase("16 training CLI (launch counts from 0)")
-    with tempfile.TemporaryDirectory() as tmp:
-        train_launches = drive_training(tmp)
+    train_launches = drive_training(tmp)
     phase(f"17 times (card: {card})")
     finest, step_sums, site_rows = dw_backward.time_all(gen)
     steps = [train_step.time_steps(TRAIN_BATCH, remat)
@@ -1127,8 +1156,18 @@ def main():
                                probe_records["probe_mosaic_ops2"]))
     torch.cuda.synchronize()
 
-    backward_entry, train_launches = drive_train_slice(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        backward_entry, train_launches = drive_train_slice(card, tmp)
+        conf = os.path.join(tmp, "exp", "conf.yml")
+        phase("18 corpus eval on phase 16's model (launch counts from 0)")
+        evaluated = eval_path.drive_eval(card, conf, tmp)
+        phase("19 long-form CSS on phase 16's model (launch counts from 0)")
+        css = eval_path.drive_css(card, conf, tmp)
+        torch.cuda.synchronize()
+    print(json.dumps({"eval": evaluated, "css": css}))
     kernels[0]["train_launches"] = train_launches[0]
+    kernels[0]["eval_launches"] = evaluated["eval_launches"]
+    kernels[0]["css_launches"] = css["css_launches"]
     kernels.append(backward_entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -340,6 +340,47 @@ class Recurrent(nn.Module):
                 x = self._iteration(*args)
         return x
 
+    @torch.inference_mode()
+    def forward_with_state(self, x, n_iter=None, per_utterance=False):
+        """Inference only: the depth-``n_iter`` forward and the progressive
+        separation's convergence proxy. Returns ``(out, delta)``, ``out``
+        equal to ``forward(x, n_iter)`` (the same iterations) and ``delta``
+        per example ``||x_d - x_{d-1}|| / (||x_d|| + 1e-8)``, the relative
+        change the last iteration made. ``n_iter`` must be at least 2."""
+        it_count = self.iter if n_iter is None else int(n_iter)
+        if not 2 <= it_count <= self.iter:
+            raise ValueError(
+                f"forward_with_state needs n_iter in [2, {self.iter}] (the "
+                f"delta compares the last two iterates), got {it_count}")
+        mixture = x
+        prev = x = self._iteration(x, mixture, False, per_utterance, False,
+                                   None)
+        for _ in range(it_count - 1):
+            prev, x = x, self._iteration(x, mixture, True, per_utterance,
+                                         False, None)
+        dims = tuple(range(1, x.ndim))
+        delta = (x - prev).square().sum(dims).sqrt() / (
+            x.square().sum(dims).sqrt() + 1e-8)
+        return x, delta
+
+    @torch.inference_mode()
+    def continue_forward(self, mixture, carry, n_more, depth,
+                         per_utterance=False):
+        """Inference only: the exact continuation of a depth-``depth``
+        carry by ``n_more`` further iterations of the same body, so
+        ``forward_with_state(n_iter=d)`` then ``continue_forward(n_more=m,
+        depth=d)`` equals ``forward(n_iter=d + m)``. Depths beyond the
+        trained one are rejected, as in ``forward``."""
+        n_more, depth = int(n_more), int(depth)
+        if n_more < 1 or depth < 1 or depth + n_more > self.iter:
+            raise ValueError(
+                f"continue_forward from depth {depth} by {n_more} leaves "
+                f"n_iter range [1, {self.iter}]")
+        x = carry
+        for _ in range(n_more):
+            x = self._iteration(x, mixture, True, per_utterance, False, None)
+        return x
+
     def _iteration(self, x, mixture, concat, per_utterance, training, seed):
         """One iteration; its dropout masks come from a generator on x's
         device seeded with ``seed``."""

@@ -114,6 +114,42 @@ class TDANetBest(BaseModel):
         est = self._back(x, s, rest)
         return est[0] if was_one_d else est
 
+    def pad_rest(self, T: int) -> int:
+        """The ``rest`` that ``ops.pad_signal`` gives a length-T input,
+        which stage 2 needs to trim its output."""
+        K = self.enc_kernel_size
+        return K - (K // 4 + T % K) % K
+
+    @torch.inference_mode()
+    def forward_stage1(self, wav, depth, per_utterance=False):
+        """Progressive separation, stage 1 (inference only): the
+        depth-``depth`` forward and the state to continue it. Returns
+        ``(est, state)``: ``est`` equals ``forward(wav, num_blocks=depth)``;
+        ``state`` holds the bottleneck mixture features, the recurrence's
+        carry, the encoder features, ``delta`` (each example's relative
+        change in the last iteration, the escalation proxy), all with the
+        batch first, and the ``depth`` reached."""
+        if wav.ndim == 3:
+            wav = wav.squeeze(1)
+        wav = wav.to(self.encoder.weight.dtype)
+        feats, s, rest = self._front(wav)
+        x, delta = self.sm.forward_with_state(feats, n_iter=depth,
+                                              per_utterance=per_utterance)
+        return self._back(x, s, rest), {"mixture": feats, "carry": x,
+                                        "enc": s, "delta": delta,
+                                        "depth": int(depth)}
+
+    @torch.inference_mode()
+    def forward_stage2(self, state, n_more, rest, per_utterance=False):
+        """Progressive separation, stage 2: the exact continuation of
+        stage 1's carry by ``n_more`` iterations; the estimate equals the
+        forward at depth ``state["depth"] + n_more``. ``rest`` is
+        ``pad_rest(T)`` of the input length."""
+        x = self.sm.continue_forward(state["mixture"], state["carry"],
+                                     n_more, state["depth"],
+                                     per_utterance=per_utterance)
+        return self._back(x, state["enc"], rest)
+
     def get_model_args(self):
         return {
             "out_channels": self.out_channels,

@@ -5,5 +5,6 @@ counterparts of ``scripts/probe_uconv_kernel.py`` and
 ``scripts/probe_mosaic_ops.py`` and ``scripts/probe_mosaic_ops2.py``),
 ``dw_sites`` (#1 at the served forward's sites), and the training slice's
 ``dw_backward`` (#1's backward at the recipe's sites) and ``train_step``
-(the recipe's step: time, peak memory, profile). Run each as
+(the recipe's step: time, peak memory, profile), and the eval slice's
+``eval_path`` (the eval and CSS CLIs on the card). Run each as
 ``python -m tdanet_tpu_torch.probes.<name> [options]``."""
