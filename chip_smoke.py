@@ -125,6 +125,31 @@ exit code is not 0:
      separated again on the card (>= 100 dB) and the progressive run
      against stitching of its segments at full depth where escalated, else
      at depth 8 (>= 60 dB); the realtime factor printed.
+  20. the serving engines (probes/serve_path.py) on phase 4's checkpoint,
+     loaded again with from_pretrain onto the card, each forward shape a
+     CUDA graph: first #1 against plain at every site the forwards of
+     phases 20 and 21 run (fp32 to phase 3's limit, bf16 >= 40 dB); then,
+     with #1's launch counts set to 0 and its call sites recorded:
+     StreamingSeparator (a 7.3 s mixture in ragged chunks against
+     stitch_segments, >= 60 dB, the input's length), MultiStreamSeparator
+     (4 streams against the StreamingSeparator, >= 60 dB; bf16 with int16
+     emission, each graph forward against the eager one, >= 60 dB, and
+     against fp32 printed), AsyncBatchServer (the ladder 8/16/24 with four
+     length buckets: 48 requests of 1-4 s from 8 client threads, then 48
+     at once; each against separate_batched, >= 60 dB; the rung grows;
+     then 48 of one bucket go through a grown rung's graphs, no background
+     build failed; the graph pool's size), a 1 ms deadline (some shed, the
+     rest answered), close and a malformed submit; #1's wrapper launches
+     exactly 2 x 512 per graph (set-up and capture), its sites all among
+     those checked, and in one profiled window the device kernels named
+     dw_conv_glob_ln exactly 512 per replay;
+  21. serving times, #1's sites recorded and all among those phase 20
+     checked, every request answered: MultiStream per-hop p50/p90/p99 at
+     1, 4 and 8 streams (bf16, int16) beside the eager hop;
+     AsyncBatchServer's closed loop (2 s clips, fp32 and bf16, max_batch 8
+     and the ladder to 24), its open loop at 50% and 90% of saturation,
+     the forward eager and replayed; a lone 2 s request's latency; the
+     device's busy share.
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
 the result line.
@@ -158,7 +183,7 @@ from tdanet_tpu_torch.models import (
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
     dw_backward, dw_sites, eval_path, hybrid, mosaic_ops, mosaic_ops2,
-    train_step, uconv_halves, uconv_kernel)
+    serve_path, train_step, uconv_halves, uconv_kernel)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.utils import separate, separate_batched
 from tdanet_tpu_torch.utils.timing import (
@@ -981,9 +1006,10 @@ def main():
     phase("4 serve (full width, 16 blocks)")
     model = TDANetBest(**CFG)
     model.reset_parameters(torch.Generator().manual_seed(1234))
+    checkpoint = model.serialize()  # phase 20 serves it again
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "best_model.pth")
-        torch.save(model.serialize(), path)
+        torch.save(checkpoint, path)
         model = BaseModel.from_pretrain(path).to("cuda")
     per_forward = SITES_PER_BLOCK * CFG["num_blocks"]
     mixes = [tone_mix(s, seed=i) for i, s in enumerate(REQUEST_SECONDS)]
@@ -1164,10 +1190,28 @@ def main():
         phase("19 long-form CSS on phase 16's model (launch counts from 0)")
         css = eval_path.drive_css(card, conf, tmp)
         torch.cuda.synchronize()
+        phase("20 serving engines on phase 4's checkpoint (launch counts "
+              "from 0)")
+        path = os.path.join(tmp, "served.pth")
+        torch.save(checkpoint, path)
+        served = BaseModel.from_pretrain(path).to("cuda").eval()
+        serve = serve_path.drive_serve(served)
+        phase(f"21 serving times (card: {card})")
+        serve_times = serve_path.time_serve(card, served)
+        del served
+        torch.cuda.synchronize()
     print(json.dumps({"eval": evaluated, "css": css}))
+    print(json.dumps({"serve": serve, "serve_times": serve_times}))
     kernels[0]["train_launches"] = train_launches[0]
     kernels[0]["eval_launches"] = evaluated["eval_launches"]
     kernels[0]["css_launches"] = css["css_launches"]
+    # phase 20: the wrapper's launches (each graph's set-up forward and
+    # capture); the engines' replays, which the wrapper does not see; and
+    # the profiler's device kernels of #1 in its window of replays
+    kernels[0]["serve_launches"] = serve["wrapper_launches"]
+    kernels[0]["serve_replays"] = serve["replays"]
+    kernels[0]["serve_profiled_replays"] = serve["profiled_replays"]
+    kernels[0]["serve_profiled_dw_kernels"] = serve["profiled_dw_kernels"]
     kernels.append(backward_entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,7 +74,9 @@ def build_parser():
                    help="escalate utterances whose last-iteration relative "
                         "delta is above this (with --progressive_depth)")
     p.add_argument("--dp", type=int, default=None,
-                   help="not ported yet (parallel/mesh.py)")
+                   help="1 (or less) is the one-device path, as in the "
+                        "JAX CLI; above 1 needs a mesh, not ported yet "
+                        "(ROADMAP A #10)")
     p.add_argument("--bundle", default=None,
                    help="not ported yet (deploy.py)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -88,9 +90,9 @@ def main(argv=None):
         p.error("--bundle is not ported yet: deploy.py and "
                 "scripts/export_bundle.py have no counterpart in "
                 "tdanet_tpu_torch")
-    if args.dp is not None:
-        p.error("--dp is not ported yet: parallel/mesh.py has no "
-                "counterpart in tdanet_tpu_torch")
+    if args.dp is not None and args.dp > 1:
+        p.error("--dp above 1 is not ported yet: parallel/mesh.py has no "
+                "counterpart in tdanet_tpu_torch (ROADMAP A #10)")
     if args.progressive_depth is not None and args.num_blocks is not None:
         p.error("--progressive_depth is exclusive with --num_blocks "
                 "(adaptive depth subsumes the fixed override)")

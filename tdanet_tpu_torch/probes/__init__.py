@@ -6,5 +6,8 @@ counterparts of ``scripts/probe_uconv_kernel.py`` and
 ``dw_sites`` (#1 at the served forward's sites), and the training slice's
 ``dw_backward`` (#1's backward at the recipe's sites) and ``train_step``
 (the recipe's step: time, peak memory, profile), and the eval slice's
-``eval_path`` (the eval and CSS CLIs on the card). Run each as
+``eval_path`` (the eval and CSS CLIs on the card), and the serving
+slice's ``serve_path`` (the engines checked and timed on the card),
+``bench_streaming`` and ``bench_async_server`` (counterparts of
+``scripts/bench_streaming.py`` and ``scripts/bench_async_server.py``). Run each as
 ``python -m tdanet_tpu_torch.probes.<name> [options]``."""

@@ -133,9 +133,10 @@ def take_item(q):
     return item
 
 
-def _dispatch(model, batch, num_blocks):
+def _dispatch(model, batch, num_blocks, compute_dtype=None):
     """Queue one padded (rows, T) numpy batch's forward, every row as if
-    alone, and the copy of its estimates to the host. On the card both are
+    alone, in ``compute_dtype`` (else the model's dtype), and the copy of
+    its estimates to the host. On the card both are
     asynchronous: the copy lands in pinned memory and the returned event
     marks it done. Returns ``(host_tensor, event or None)``."""
     device, dtype = _device_dtype(model)
@@ -145,7 +146,8 @@ def _dispatch(model, batch, num_blocks):
         x = x.pin_memory()
     with torch.inference_mode():
         x = x.to(device=device, dtype=dtype, non_blocking=cuda)
-        est = model(x, num_blocks=num_blocks, per_utterance=True)
+        est = model(x, num_blocks=num_blocks, per_utterance=True,
+                    compute_dtype=compute_dtype)
         est = est.to(torch.promote_types(est.dtype, torch.float32))
         if not cuda:
             return est, None
@@ -157,7 +159,8 @@ def _dispatch(model, batch, num_blocks):
 
 
 def separate_batched_stream(model, lengths, get_item, batch_size=8,
-                            lattice=None, num_blocks=None):
+                            lattice=None, num_blocks=None,
+                            compute_dtype=None):
     """Separate a corpus in lattice-length buckets, ``batch_size``
     utterances a forward, with audio IO and host work overlapping the card.
 
@@ -175,7 +178,9 @@ def separate_batched_stream(model, lengths, get_item, batch_size=8,
     bucket order (buckets by length, corpus order within one), ``est`` the
     (n_src, T_i) numpy estimate trimmed and renormalised by
     :func:`trim_renorm`; ``item`` is what ``get_item`` returned, whose
-    first element is the mixture."""
+    first element is the mixture. ``compute_dtype`` (e.g.
+    torch.bfloat16) is the forward's activation dtype, as
+    ``TDANetBest.forward`` takes it; bf16 estimates come back as float32."""
     lattice = lattice or getattr(model, "lcm", 1)
     plan = plan_lattice_buckets(lengths, lattice, batch_size)
     q, close = start_prefetch_reader(plan, get_item,
@@ -197,7 +202,7 @@ def separate_batched_stream(model, lengths, get_item, batch_size=8,
             for row, it in enumerate(items):
                 w = np.asarray(it[0], np.float32)
                 batch[row, :w.shape[-1]] = w
-            result = _dispatch(model, batch, num_blocks)
+            result = _dispatch(model, batch, num_blocks, compute_dtype)
             if pending is not None:
                 yield from materialize(*pending)
             pending = (chunk, items, *result)
@@ -208,17 +213,19 @@ def separate_batched_stream(model, lengths, get_item, batch_size=8,
 
 
 def separate_batched(model, wavs, batch_size=8, lattice=None,
-                     num_blocks=None):
+                     num_blocks=None, compute_dtype=None):
     """Separate variable-length utterances in lattice-length buckets,
     ``batch_size`` at a time (:func:`separate_batched_stream`). Every row
     is separated as if alone (the per-utterance attention collapse), so
     results do not depend on which utterances share a batch. Returns numpy
     (n_src, T_i) estimates in input order, in the model's dtype (bf16
-    upcast to float32, as in :func:`separate`)."""
+    upcast to float32, as in :func:`separate`), or in ``compute_dtype``
+    when it is given."""
     wavs = [np.asarray(w, np.float32) for w in wavs]
     outputs = [None] * len(wavs)
     for i, _, est in separate_batched_stream(
             model, [w.shape[-1] for w in wavs], lambda i: (wavs[i],),
-            batch_size, lattice, num_blocks=num_blocks):
+            batch_size, lattice, num_blocks=num_blocks,
+            compute_dtype=compute_dtype):
         outputs[i] = est
     return outputs

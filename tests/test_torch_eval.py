@@ -529,6 +529,27 @@ def test_cli_device_rules_and_rejections(cli_run, monkeypatch):
     assert e.value.code == 2
 
 
+@pytest.mark.parametrize("dp", ["1", "0"])
+def test_dp_of_one_is_the_one_device_path(cli_run, monkeypatch, dp):
+    """--dp 1 (or less) runs the one-device path, as the JAX CLI does: the
+    same metrics.csv as a run without it; --dp 2 is refused by the parser
+    (data-parallel eval waits for ROADMAP A #10)."""
+    from tdanet_tpu_torch import audio_test
+    root, conf, exp = cli_run
+    monkeypatch.chdir(root)
+    assert audio_test.build_parser().parse_args(
+        ["--conf_dir", conf, "--dp", dp]).dp == int(dp)
+    runs = []
+    for extra in ([], ["--dp", dp]):
+        final = audio_test.main(["--conf_dir", conf, "--device", "cpu",
+                                 "--batch_size", "2", *extra])
+        runs.append((final, _csv(exp / "results" / "metrics.csv")))
+    assert runs[0] == runs[1] and audio_test.ok(runs[1][0])
+    with pytest.raises(SystemExit) as e:
+        audio_test.main(["--conf_dir", conf, "--device", "cpu", "--dp", "2"])
+    assert e.value.code == 2
+
+
 def test_experiment_dir_and_exit_code(cli_run, tmp_path, monkeypatch):
     """A conf whose trainer recorded main_args.exp_dir evaluates the run
     there (metrics.csv beside its best_model.pth); an empty corpus gives
