@@ -150,6 +150,27 @@ exit code is not 0:
      and the ladder to 24), its open loop at 50% and 90% of saturation,
      the forward eager and replayed; a lone 2 s request's latency; the
      device's busy share.
+  22. the TDANet variant family (probes/variants.py), from #1's launch
+     counts at 0: the eleven classes at configs/tdanet_origin.yml's widths
+     (16 blocks, depth 5) at 16 kHz, seeded weights through a .pth and
+     from_pretrain; each model's sites found on the plain path and held
+     against plain first (phase 3's limit), then ``separate`` on a 2 s
+     clip through #1, its sites recorded and all checked, #1's launches
+     exactly 17 x 16 a forward (13 x 16 for TDANetULayerNum), the output
+     against float64 on the CPU >= 60 dB; TDANetYang also at B=2 without
+     per_utterance, through the inference CLI, and in a profiled window
+     of graph replays (#1's device kernels 272 a replay);
+  23. the family's training: audio_train on configs/tdanet_origin.yml
+     (TDANetOrigin, B 8, 3 s, bf16, checkpointing) on phase 16's data, 2
+     epochs and a resume, #1's forward and backward launches exact over
+     the run and per step (544, 272); TDANetYang's gradients (B 2, 1 s,
+     fp32) against CPU float64 >= 50 dB, launches per step exact with and
+     without checkpointing; times: TDANetYang's forward (B 1, 2 s, fp32)
+     eager and replayed with #1's share of device time, the train step
+     (B 8, 3 s, bf16) of TDANetOrigin with checkpointing and TDANetYang
+     without, as audio_train builds each; every site the phase launched
+     #1 at (training, validation, gradients, timed runs) recorded and
+     held against plain, forward and backward.
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
 the result line.
@@ -159,7 +180,6 @@ import copy
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -171,7 +191,7 @@ import torch
 
 from tdanet_tpu_torch.kernels import _build, micro_ops
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
-    dw_conv_glob_ln, dw_conv_glob_ln_backward, dw_conv_glob_ln_chunked,
+    dw_conv_glob_ln, dw_conv_glob_ln_chunked,
     dw_conv_glob_ln_reference)
 from tdanet_tpu_torch.kernels.uconv_block import (
     fuse_expand_fused, kernels_per_call, pyramid_fused, scale_lengths, to_raw)
@@ -183,8 +203,9 @@ from tdanet_tpu_torch.models import (
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
     dw_backward, dw_sites, eval_path, hybrid, mosaic_ops, mosaic_ops2,
-    serve_path, train_step, uconv_halves, uconv_kernel)
+    serve_path, train_step, uconv_halves, uconv_kernel, variants)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
+from tdanet_tpu_torch.probes.train_step import tone_mix
 from tdanet_tpu_torch.utils import separate, separate_batched
 from tdanet_tpu_torch.utils.timing import (
     bound_ms, card_line, cuda_time, graph_time, nbytes, snr_db)
@@ -274,17 +295,6 @@ def graph_equals_eager(x, params, stride, K):
 def dev_us(event):
     """A profiler average's self device time in us."""
     return event.self_device_time_total
-
-
-def tone_mix(seconds, seed, sr=16000):
-    """Two tones plus noise, as __graft_entry__._tone_sources makes them."""
-    rng = np.random.default_rng(seed)
-    T = int(round(seconds * sr))
-    t = np.arange(T) / sr
-    srcs = [0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * t
-                         + rng.uniform(0, 6))
-            + 0.02 * rng.standard_normal(T) for _ in range(2)]
-    return np.sum(srcs, axis=0).astype(np.float32)
 
 
 # (B, dtype, T, depth) of phase 7: the request and the bench batch at full
@@ -711,156 +721,30 @@ def print_backward_plans():
               " again in phase 2")
 
 
-def dw_counts():
-    return dw_conv_glob_ln.launches, dw_conv_glob_ln_backward.launches
-
-
-def loss_and_grads(model, loss_fn, mix, src, **kw):
-    """One forward and backward; (loss, {name: gradient})."""
-    model.zero_grad(set_to_none=True)
-    loss = loss_fn(model(mix, **kw), src)
-    loss.backward()
-    return loss.detach(), {n: p.grad for n, p in model.named_parameters()
-                           if p.grad is not None}
-
-
 def drive_gradients():
     """Phase 15: the full-width recipe model's gradients on the card
     against float64 on the CPU, #1's launches per step, and checkpointed
     gradients with dropout on. Returns the lowest SNR."""
-    from tdanet_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
-    loss_fn = PITLossWrapper(pairwise_neg_snr, threshold_byloss=True)
     model = TDANetBest(**RECIPE)
     model.reset_parameters(torch.Generator().manual_seed(77))
-    cpu64 = copy.deepcopy(model).double()
-    model = model.cuda()
-    mix, src = train_step.tone_batch(2, seconds=1.0, seed=3)
     # the coarsest scale's LA fusion (loc_glo_fus[depth - 1], 3 sites a
     # block) never reaches the loss: the expansion pairs the finer scales
     # (the reference's quirk), so autograd runs no backward there
-    sites = SITES_PER_BLOCK * RECIPE["num_blocks"]
-    dead = 3 * RECIPE["num_blocks"]
-    grads = {}
-    for remat, want in ((False, (sites, sites - dead)),
-                        (True, (2 * sites, sites - dead))):
-        model.sm.remat = remat
-        before = dw_counts()
-        loss, grads[remat] = loss_and_grads(model, loss_fn, mix, src)
-        torch.cuda.synchronize()
-        got = tuple(a - b for a, b in zip(dw_counts(), before))
-        print(f"one step B=2 1 s fp32, checkpointing {remat}: loss "
-              f"{loss.item():.4f}; #1 launches forward {got[0]}, backward "
-              f"{got[1]} (expected {want})")
-        if got != want:
-            raise AssertionError(f"{got} launches of #1 (forward, backward)"
-                                 f" in one step, expected {want}")
-    t0 = time.perf_counter()
-    loss64, g64 = loss_and_grads(cpu64, loss_fn, mix.cpu().double(),
-                                 src.cpu().double())
-    print(f"CPU float64 plain path: loss {loss64.item():.4f} "
-          f"({time.perf_counter() - t0:.1f} s)")
-    if set(g64) != set(grads[False]):
-        raise AssertionError("the card and the CPU differ in which "
-                             "parameters have a gradient")
-    snrs = {n: snr_db(g64[n], grads[False][n].cpu()) for n in g64}
-    low = sorted(snrs.items(), key=lambda kv: kv[1])
-    print(f"{len(snrs)} parameter gradients, card fp32 vs CPU float64: "
-          f"lowest SNR {low[0][1]:.2f} dB ({low[0][0]}), median "
-          f"{statistics.median(snrs.values()):.2f} dB (limit 50)")
-    for n, v in low[:3]:
-        print(f"  {v:.2f} dB {n}")
-    if low[0][1] < 50.0:
-        raise AssertionError("a gradient disagrees with the CPU")
-    drop = {}
-    for remat in (False, True):
-        model.sm.remat = remat
-        _, drop[remat] = loss_and_grads(
-            model, loss_fn, mix, src, training=True,
-            generator=torch.Generator().manual_seed(5))
-    same = min(snr_db(drop[False][n], drop[True][n]) for n in drop[False])
-    print(f"dropout on: gradients with and without checkpointing, lowest "
-          f"SNR {same:.2f} dB (limit 60)")
-    if same < 60.0:
-        raise AssertionError("checkpointed gradients differ with dropout on")
-    torch.cuda.synchronize()
-    return low[0][1]
-
-
-def write_split(root, n, seed, seconds=3.5, sr=8000):
-    """n utterances of two tone-plus-noise sources and their mixture, with
-    the manifests the data modules read."""
-    from tdanet_tpu_torch.utils import write_wav
-    rng = np.random.default_rng(seed)
-    T = int(seconds * sr)
-    t = np.arange(T) / sr
-    infos = {"mix_clean": [], "s1": [], "s2": []}
-    for i in range(n):
-        srcs = [0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * t
-                             + rng.uniform(0, 6))
-                + 0.02 * rng.standard_normal(T) for _ in range(2)]
-        for key, data in (("mix_clean", srcs[0] + srcs[1]), ("s1", srcs[0]),
-                          ("s2", srcs[1])):
-            path = os.path.join(root, key, f"utt{i}.wav")
-            write_wav(path, data, sr)
-            infos[key].append([path, T])
-    for key, rows in infos.items():
-        with open(os.path.join(root, f"{key}.json"), "w") as f:
-            json.dump(rows, f)
+    return train_step.check_gradients(
+        model, SITES_PER_BLOCK * RECIPE["num_blocks"],
+        dead=3 * RECIPE["num_blocks"], seed=3)[0]
 
 
 def drive_training(tmp):
     """Phase 16: audio_train.main on the recipe, from launch counts of 0;
     returns #1's (forward, backward) launches in that run."""
-    from tdanet_tpu_torch import audio_train
-    from tdanet_tpu_torch.utils.parser import parse_config
     tr, cv = os.path.join(tmp, "tr"), os.path.join(tmp, "cv")
-    write_split(tr, TRAIN_UTTERANCES, seed=0)
-    write_split(cv, VALID_UTTERANCES, seed=1)
-    exp = os.path.join(tmp, "exp")
-
-    def config(epochs, *extra):
-        return parse_config([
-            "--conf_dir", "configs/tdanet.yml",
-            f"datamodule.data_config.train_dir={tr}",
-            f"datamodule.data_config.valid_dir={cv}",
-            f"datamodule.data_config.test_dir={cv}",
-            f"training.epochs={epochs}", f"main_args.exp_dir={exp}",
-            "exp.project=null", *extra])
-
-    dw_conv_glob_ln.launches = dw_conv_glob_ln_backward.launches = 0
-    t0 = time.perf_counter()
-    trainer = audio_train.main(config(2))
-    torch.cuda.synchronize()
-    launches = dw_counts()
-    print(f"audio_train.main: 2 epochs in {time.perf_counter() - t0:.1f} s "
-          f"(first calls included); #1 launches forward {launches[0]}, "
-          f"backward {launches[1]}")
+    train_step.write_split(tr, TRAIN_UTTERANCES, seed=0)
+    train_step.write_split(cv, VALID_UTTERANCES, seed=1)
+    _, resumed, launches = train_step.train_and_resume(
+        "configs/tdanet.yml", tr, cv, os.path.join(tmp, "exp"))
     if min(launches) < 1:
         raise AssertionError(f"the training path missed #1: {launches}")
-    hist = trainer.history
-    if [r["epoch"] for r in hist] != [0, 1] or not all(
-            np.isfinite([r["train_loss"], r["val_loss"]]).all()
-            for r in hist):
-        raise AssertionError(f"bad history {hist}")
-    for name in ("history.json", "best_k_models.json", "best_model.pth",
-                 "conf.yml", "extras.json"):
-        if not os.path.exists(os.path.join(exp, name)):
-            raise AssertionError(f"no {name} in the experiment dir")
-    loaded = BaseModel.from_pretrain(
-        os.path.join(exp, "best_model.pth")).cuda()
-    wav = torch.from_numpy(tone_mix(2.0, seed=4, sr=8000)).cuda()[None]
-    with torch.no_grad():
-        a, b = loaded(wav), trainer.best_model(wav)
-    err = ((a - b).abs().max() / b.abs().max()).item()
-    print(f"from_pretrain(best_model.pth) vs the trained best model, 2 s "
-          f"fp32 forward: max|d|/max|ref| {err:.2e} (limit 1e-6)")
-    if not (err <= 1e-6 and torch.isfinite(a).all()):
-        raise AssertionError("best_model.pth does not give the trained "
-                             "model's forward")
-    resumed = audio_train.main(config(3, "main_args.resume=true"))
-    if [r["epoch"] for r in resumed.history] != [2]:
-        raise AssertionError(f"resume ran {resumed.history}")
-    print(f"resume: epoch 2 only, {resumed.history[0]}")
     state, step = resumed.state, resumed.train_step
     mix, src, _ = next(iter(resumed.datamodule.train_dataloader()))
     mix = torch.from_numpy(mix).cuda()
@@ -1200,8 +1084,18 @@ def main():
         serve_times = serve_path.time_serve(card, served)
         del served
         torch.cuda.synchronize()
+        phase("22 TDANet variant family (launch counts from 0)")
+        family, variant_launches = variants.drive_family(tmp)
+        torch.cuda.synchronize()
+        phase(f"23 the family's training on the card (card: {card})")
+        family_training, variant_train = variants.drive_family_training(
+            card, tmp, data=(os.path.join(tmp, "tr"),
+                             os.path.join(tmp, "cv")))
+        torch.cuda.synchronize()
     print(json.dumps({"eval": evaluated, "css": css}))
     print(json.dumps({"serve": serve, "serve_times": serve_times}))
+    print(json.dumps({"variants": family, "variant_training":
+                      family_training}))
     kernels[0]["train_launches"] = train_launches[0]
     kernels[0]["eval_launches"] = evaluated["eval_launches"]
     kernels[0]["css_launches"] = css["css_launches"]
@@ -1212,6 +1106,11 @@ def main():
     kernels[0]["serve_replays"] = serve["replays"]
     kernels[0]["serve_profiled_replays"] = serve["profiled_replays"]
     kernels[0]["serve_profiled_dw_kernels"] = serve["profiled_dw_kernels"]
+    # phase 22: #1's launches over the eleven models' forwards (checks
+    # excluded); phase 23: its (forward, backward) launches over the
+    # audio_train run on configs/tdanet_origin.yml
+    kernels[0]["variant_launches"] = variant_launches
+    kernels[0]["variant_train_launches"] = list(variant_train)
     kernels.append(backward_entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
     python -m tdanet_tpu_torch.inference CKPT MIX.wav OUT_PREFIX [--device cuda]
 
 writes OUT_PREFIX_s1.wav ... OUT_PREFIX_s{n_src}.wav, each of the input's
-length. The default device is CUDA; the CPU runs only when asked for.
+length. The model is the one the checkpoint names (``model_name``), else
+TDANetBest (a raw state dict names none). The default device is CUDA; the
+CPU runs only when asked for.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import argparse
 
 import torch
 
-from tdanet_tpu_torch.models import BaseModel
+from tdanet_tpu_torch.models import BaseModel, load_torch_checkpoint
 from tdanet_tpu_torch.utils import read_wav, separate, write_wav
 
 
@@ -26,7 +28,8 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to "
                          "separate on the CPU")
-    model = BaseModel.from_pretrain("TDANetBest", args.ckpt).to(args.device)
+    name = load_torch_checkpoint(args.ckpt).get("model_name") or "TDANetBest"
+    model = BaseModel.from_pretrain(name, args.ckpt).to(args.device)
     wav, sr = read_wav(args.wav)
     est = separate(model, wav)
     for i in range(est.shape[0]):

@@ -170,6 +170,12 @@ def dw_conv_glob_ln_backward_reference(dy, x, weight, bias, gamma, *,
             dgamma.to(gamma.dtype), dbeta.to(gamma.dtype))
 
 
+def supports(K, stride):
+    """Whether #1 serves a depthwise site of kernel K and this stride: K
+    odd and at most 7, stride 1 or 2 (the TPU kernel's range)."""
+    return K % 2 == 1 and 1 <= K <= 7 and stride in (1, 2)
+
+
 def _check(x, weight, bias, gamma, beta, stride, K):
     if x.ndim != 3:
         raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
@@ -180,10 +186,9 @@ def _check(x, weight, bias, gamma, beta, stride, K):
     for name, p in (("bias", bias), ("gamma", gamma), ("beta", beta)):
         if p is not None and tuple(p.shape) != (C,):
             raise ValueError(f"{name} must be ({C},), got {tuple(p.shape)}")
-    if K % 2 == 0 or not 1 <= K <= 7:
-        raise ValueError(f"K must be odd and at most 7, got {K}")
-    if stride not in (1, 2):
-        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if not supports(K, stride):
+        raise ValueError(f"K must be odd and at most 7 and stride 1 or 2, "
+                         f"got K {K}, stride {stride}")
     if x.stride(1) != 1 and x.stride(2) != 1:
         raise ValueError(
             "one of T and C must be the innermost contiguous axis of x; got "

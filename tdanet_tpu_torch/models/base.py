@@ -71,6 +71,11 @@ def get(identifier):
     raise ValueError(f"Invalid model identifier {identifier!r}")
 
 
+def available_models():
+    """The registered models' names, lower case, sorted."""
+    return sorted(_MODEL_REGISTRY)
+
+
 def warn_unused_kwargs(cls_name: str, unused: Dict[str, Any]):
     """Warn about constructor kwargs a model ignores. ``n_src`` is exempt:
     reference checkpoints serialize it and no constructor takes it."""

@@ -3,15 +3,20 @@
 
 Module and parameter names follow the JAX package's parameter tree, so a
 block's ``state_dict()`` keys equal its flat JAX keys. Every depthwise
-ConvNorm (groups == channels) runs the fused conv + GlobLN kernel, and its
-backward kernel where a gradient is wanted; the dense ones are a conv and
-``ops.glob_ln``.
+ConvNorm in kernel #1's range runs the fused conv + GlobLN kernel, and its
+backward kernel where a gradient is wanted, with either norm
+(:class:`ConvNorm` states the rule); the other ConvNorms are a conv and
+the plain norm.
+
+Norm flavours: ``"gln"`` is GlobLN with parameters gamma and beta,
+``"gn"`` GroupNorm(1, C, eps=1e-8) with weight and bias. Their statistics
+are the same (one pass, eps inside the rsqrt); only the names differ.
 
 Training mode (``training=True`` with a ``torch.Generator``) places
-dropout and drop-path where the JAX package does, at its fixed rates of
-0.1: FFN after the ReLU and after fc2; the attention weights and the
-attention's residual branch; drop-path on both GA sublayers. At inference
-they are the identity.
+dropout and drop-path where the JAX package does, at the rates each module
+is built with (0.1 unless a model says otherwise): FFN after the ReLU and
+after fc2; the attention weights and the attention's residual branch;
+drop-path on both GA sublayers. At inference they are the identity.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from tdanet_tpu_torch.kernels.dw_conv_glob_ln import dw_conv_glob_ln
+from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (dw_conv_glob_ln,
+                                                      supports)
 from tdanet_tpu_torch.ops import basic as ops
 
 
@@ -33,78 +39,135 @@ class GlobLN(nn.Module):
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
+    def affine(self):
+        return self.gamma, self.beta
+
     def forward(self, x):
         return ops.glob_ln(x, self.gamma, self.beta)
 
 
 class GroupNorm1(nn.Module):
-    """nn.GroupNorm(1, C, eps=1e-8) parameters (weight, bias) and its plain
-    forward."""
+    """nn.GroupNorm(1, C, eps) parameters (weight, bias) and its plain
+    forward; eps 1e-8 unless given."""
 
-    def __init__(self, channels):
+    def __init__(self, channels, eps=1e-8):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+
+    def affine(self):
+        return self.weight, self.bias
 
     def forward(self, x):
-        return ops.group_norm1(x, self.weight, self.bias)
+        return ops.group_norm1(x, self.weight, self.bias, eps=self.eps)
+
+
+def make_norm(channels, norm):
+    """The norm of a flavour: GlobLN for "gln", GroupNorm1 for "gn"."""
+    if norm == "gln":
+        return GlobLN(channels)
+    if norm == "gn":
+        return GroupNorm1(channels)
+    raise ValueError(norm)
 
 
 class ConvNorm(nn.Module):
     """Conv1d ('same' padding) + a global norm: GlobLN (``norm="gln"``,
     parameters gamma and beta) or GroupNorm(1, C) (``norm="gn"``, weight and
-    bias). Only the depthwise GlobLN form runs the fused kernel."""
+    bias).
+
+    The route is a static rule on the site's shape, fixed at construction
+    (``on_kernel``): a depthwise site (groups == n_in == n_out) in #1's
+    range (``supports``: K odd and at most 7, stride 1 or 2) runs
+    ``dw_conv_glob_ln`` for either
+    norm, a "gn" site passing its weight and bias where the kernel takes
+    gamma and beta (eps 1e-8 for both); every other site is ``ops.conv1d``
+    and the plain norm. A kernel that fails raises: no site gives way to
+    the plain path at run time."""
 
     def __init__(self, n_in, n_out, kernel, stride=1, groups=1, bias=True,
                  norm="gln"):
         super().__init__()
-        if norm not in ("gln", "gn"):
-            raise ValueError(norm)
         self.stride, self.kernel = stride, kernel
         self.padding = (kernel - 1) // 2
-        self.depthwise = groups == n_in == n_out and norm == "gln"
+        self.on_kernel = groups == n_in == n_out and supports(kernel, stride)
         self.conv = nn.Conv1d(n_in, n_out, kernel, stride=stride,
                               padding=self.padding, groups=groups, bias=bias)
-        self.norm = GlobLN(n_out) if norm == "gln" else GroupNorm1(n_out)
+        self.norm = make_norm(n_out, norm)
 
     def forward(self, x):
         conv, norm = self.conv, self.norm
-        if self.depthwise:
+        if self.on_kernel:
             return dw_conv_glob_ln(
-                x.transpose(1, 2), conv.weight, conv.bias, norm.gamma,
-                norm.beta, stride=self.stride, K=self.kernel).transpose(1, 2)
+                x.transpose(1, 2), conv.weight, conv.bias, *norm.affine(),
+                stride=self.stride, K=self.kernel).transpose(1, 2)
         return norm(ops.conv1d(x, conv.weight, conv.bias, stride=self.stride,
                                padding=self.padding, groups=conv.groups))
 
 
 class ConvNormAct(ConvNorm):
-    """Conv1d + GlobLN + PReLU."""
+    """Conv1d + global norm + PReLU."""
 
-    def __init__(self, n_in, n_out, kernel, stride=1, groups=1):
-        super().__init__(n_in, n_out, kernel, stride, groups, bias=True)
+    def __init__(self, n_in, n_out, kernel, stride=1, groups=1, norm="gln"):
+        super().__init__(n_in, n_out, kernel, stride, groups, bias=True,
+                         norm=norm)
         self.act = nn.PReLU()
 
     def forward(self, x):
         return ops.prelu(super().forward(x), self.act.weight)
 
 
-class DilatedConvNorm(ConvNorm):
-    """The pyramid's depthwise conv + GlobLN, with bias (dilation 1, the
-    only one TDANetBest uses)."""
+class NormAct(nn.Module):
+    """Global norm + PReLU."""
 
-    def __init__(self, n_in, n_out, kernel, stride=1, groups=1):
-        super().__init__(n_in, n_out, kernel, stride, groups, bias=True)
+    def __init__(self, channels, norm="gln"):
+        super().__init__()
+        self.norm = make_norm(channels, norm)
+        self.act = nn.PReLU()
+
+    def forward(self, x):
+        return ops.prelu(self.norm(x), self.act.weight)
+
+
+class DilatedConvNorm(ConvNorm):
+    """The pyramid's depthwise conv + norm, with bias (dilation 1, the only
+    one the TDANet models use)."""
+
+    def __init__(self, n_in, n_out, kernel, stride=1, groups=1, norm="gln"):
+        super().__init__(n_in, n_out, kernel, stride, groups, bias=True,
+                         norm=norm)
+
+
+class DilatedSeparableConvNorm(nn.Module):
+    """Depthwise conv -> pointwise conv -> norm (TDANet's "conv-pool"
+    branch). The norm follows the pointwise conv, so this is not kernel
+    #1's function: two cuDNN convs and the plain norm."""
+
+    def __init__(self, n_in, n_out, kernel, stride=1, groups=1, norm="gn"):
+        super().__init__()
+        self.stride, self.padding = stride, (kernel - 1) // 2
+        self.dw_conv = nn.Conv1d(n_in, n_out, kernel, stride=stride,
+                                 padding=self.padding, groups=groups)
+        self.pw_conv = nn.Conv1d(n_in, n_out, 1)
+        self.norm = make_norm(n_out, norm)
+
+    def forward(self, x):
+        dw, pw = self.dw_conv, self.pw_conv
+        y = ops.conv1d(x, dw.weight, dw.bias, stride=self.stride,
+                       padding=self.padding, groups=dw.groups)
+        return self.norm(ops.conv1d(y, pw.weight, pw.bias))
 
 
 class FFN(nn.Module):
     """1x1 ConvNorm -> depthwise k5 conv -> ReLU -> dropout -> 1x1 ConvNorm
     -> dropout."""
 
-    def __init__(self, in_features, hidden, drop=0.1):
+    def __init__(self, in_features, hidden, drop=0.1, norm="gln"):
         super().__init__()
-        self.fc1 = ConvNorm(in_features, hidden, 1, bias=False)
+        self.fc1 = ConvNorm(in_features, hidden, 1, bias=False, norm=norm)
         self.dwconv = nn.Conv1d(hidden, hidden, 5, padding=2, groups=hidden)
-        self.fc2 = ConvNorm(hidden, in_features, 1, bias=False)
+        self.fc2 = ConvNorm(hidden, in_features, 1, bias=False, norm=norm)
         self.drop = drop
 
     def forward(self, x, training=False, generator=None):
@@ -116,19 +179,22 @@ class FFN(nn.Module):
 
 
 class MultiHeadAttentionModule(nn.Module):
-    """TDANetBest's attention sublayer. By default it has the reference
-    checkpoint's two quirks:
+    """The TDANet attention sublayer, in the reference family's three
+    flavours:
 
-    - the (B, T, C) input runs through batch_first=False attention, so it
-      attends over the BATCH axis with T as the batch. For one utterance
-      that is softmax over one element, and the output collapses exactly
-      to out_proj(v_proj(x)). ``per_utterance=True`` applies that collapse
-      to every row: each row then gets what it would alone, which is how
-      a batch of independent utterances is separated;
-    - the residual is the attention output added to itself.
-
-    ``fixed=True`` is the repaired flavour: attention over T within each
-    row, and the residual ``normed input + pe + attention output``.
+    - the default (TDANetBest, TDANetYang): the (B, T, C) input runs
+      through batch_first=False attention, so it attends over the BATCH
+      axis with T as the batch, and the residual is the attention output
+      added to itself. For one utterance that is softmax over one element,
+      and the output collapses exactly to out_proj(v_proj(x)).
+      ``per_utterance=True`` applies that collapse to every row: each row
+      then gets what it would alone, which is how a batch of independent
+      utterances is separated;
+    - ``batch_first=True`` with ``self_residual=True`` (TDANetOld):
+      attention over T within each row, the self-added residual;
+    - ``fixed=True``, shorthand for batch_first=True and
+      self_residual=False (TDANetMultRes): attention over T, the residual
+      ``normed input + pe + attention output``.
 
     In training the attention weights and the residual branch are dropped
     at ``dropout``, and the one-utterance collapse is not taken: at B = 1
@@ -136,16 +202,24 @@ class MultiHeadAttentionModule(nn.Module):
     does.
     """
 
-    def __init__(self, channels, n_head=8, fixed=False, dropout=0.1):
+    def __init__(self, channels, n_head=8, fixed=False, dropout=0.1,
+                 batch_first=None, self_residual=None):
         super().__init__()
         self.n_head = n_head
-        self.fixed = fixed
+        self.batch_first = fixed if batch_first is None else batch_first
+        self.self_residual = (not fixed) if self_residual is None \
+            else self_residual
         self.dropout = dropout
         self.attn_in_norm = nn.LayerNorm(channels)
         # parameter holder only: its forward is not the reference's math
         self.attn = nn.MultiheadAttention(channels, n_head)
         self.norm = nn.LayerNorm(channels)
         self._pe = {}
+
+    @property
+    def fixed(self):
+        """The repaired flavour: attention over T, the true residual."""
+        return self.batch_first and not self.self_residual
 
     def _pos_enc(self, T, C, like):
         key = (T, C, like.device, like.dtype)
@@ -162,7 +236,7 @@ class MultiHeadAttentionModule(nn.Module):
         out = out + self._pos_enc(T, C, out)
         drop = dict(dropout_rate=self.dropout, generator=generator,
                     training=training)
-        if self.fixed:  # attention over T: (T, B, C) is (L, N, E)
+        if self.batch_first:  # attention over T: (T, B, C) is (L, N, E)
             q = out.transpose(0, 1)
             attn_out = ops.multi_head_attention(
                 q, q, q, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
@@ -176,7 +250,7 @@ class MultiHeadAttentionModule(nn.Module):
             attn_out = ops.multi_head_attention(
                 out, out, out, a.in_proj_weight, a.in_proj_bias,
                 a.out_proj.weight, a.out_proj.bias, self.n_head, **drop)
-        res = (out if self.fixed else attn_out) + ops.dropout(
+        res = (attn_out if self.self_residual else out) + ops.dropout(
             attn_out, generator, self.dropout, training)
         res = ops.layer_norm(res, self.norm.weight, self.norm.bias)
         return res.transpose(1, 2)
@@ -184,18 +258,27 @@ class MultiHeadAttentionModule(nn.Module):
 
 class GA(nn.Module):
     """Global attention: attention sublayer + FFN, each with a residual
-    behind drop-path."""
+    behind drop-path. ``use_attn=False`` is the MLP-only form (no ``attn``
+    parameters)."""
 
-    def __init__(self, out_chan, fixed_mha=False, drop_path=0.1):
+    def __init__(self, out_chan, fixed_mha=False, drop_path=0.1,
+                 attn_dropout=0.1, ffn_drop=0.1, norm="gln", mha_kwargs=None,
+                 use_attn=True):
         super().__init__()
-        self.attn = MultiHeadAttentionModule(out_chan, 8, fixed=fixed_mha)
-        self.mlp = FFN(out_chan, out_chan * 2)
+        if use_attn:
+            self.attn = MultiHeadAttentionModule(
+                out_chan, 8, fixed=fixed_mha, dropout=attn_dropout,
+                **(mha_kwargs or {}))
+        else:
+            self.attn = None
+        self.mlp = FFN(out_chan, out_chan * 2, drop=ffn_drop, norm=norm)
         self.drop_path = drop_path
 
     def forward(self, x, per_utterance=False, training=False,
                 generator=None):
-        a = self.attn(x, per_utterance, training, generator)
-        x = x + ops.drop_path(a, generator, self.drop_path, training)
+        if self.attn is not None:
+            a = self.attn(x, per_utterance, training, generator)
+            x = x + ops.drop_path(a, generator, self.drop_path, training)
         m = self.mlp(x, training, generator)
         return x + ops.drop_path(m, generator, self.drop_path, training)
 
@@ -206,15 +289,15 @@ class LA(nn.Module):
     with nearest upsampling. All three embeddings are depthwise when
     inp == oup."""
 
-    def __init__(self, inp, oup, kernel=1):
+    def __init__(self, inp, oup, kernel=1, norm="gln"):
         super().__init__()
         groups = inp if inp == oup else 1
         self.local_embedding = ConvNorm(inp, oup, kernel, groups=groups,
-                                        bias=False)
+                                        bias=False, norm=norm)
         self.global_embedding = ConvNorm(inp, oup, kernel, groups=groups,
-                                         bias=False)
+                                         bias=False, norm=norm)
         self.global_act = ConvNorm(inp, oup, kernel, groups=groups,
-                                   bias=False)
+                                   bias=False, norm=norm)
 
     def forward(self, x_l, x_g):
         T, Tg = x_l.shape[-1], x_g.shape[-1]
@@ -288,9 +371,117 @@ class UConvBlock(nn.Module):
                           self.res_conv.bias) + residual
 
 
+class UConvBlockInject(nn.Module):
+    """The paper-topology U-block of the TDANet variant family: like
+    UConvBlock without the per-scale LA fusion; the global feature is
+    nearest-upsampled and ADDED to each scale (``inject="add"``) or gates
+    it through a sigmoid (``inject="gate"``). The reference's quirks are
+    kept:
+
+    - ``pool="conv"`` replaces the adaptive-average-pool global branch by
+      strided separable convs, applied in REVERSED index order (scale k
+      goes through ``conv_pool[depth - 1 - k]``);
+    - ``expand_pair``: the first expansion's global input is the finer
+      scale depth-3 ("prev") or the coarsest scale depth-1 ("next");
+    - ``down_stride`` is the pyramid's stride, with kernel
+      2 * down_stride + 1 (16 and 33 in TDANetULayerNum: those stages are
+      outside kernel #1's range and run cuDNN + the plain norm).
+
+    Kernel #1 runs at the pyramid's stages in its range and at the three
+    depthwise K5 ConvNorms of each expansion LA; the FFN's dwconv and the
+    conv-pool have no norm right after a depthwise conv."""
+
+    def __init__(self, out_channels=128, in_channels=512, upsampling_depth=4,
+                 norm="gn", pool="avg", down_stride=2, fixed_mha=False,
+                 drop_path=0.1, attn_dropout=0.1, ffn_drop=0.1,
+                 inject="add", expand_pair="prev", mha_kwargs=None,
+                 ga_use_attn=True):
+        super().__init__()
+        if pool not in ("avg", "conv") or inject not in ("add", "gate") \
+                or expand_pair not in ("prev", "next"):
+            raise ValueError(f"pool {pool!r}, inject {inject!r}, "
+                             f"expand_pair {expand_pair!r}")
+        self.depth = upsampling_depth
+        self.pool, self.inject, self.expand_pair = pool, inject, expand_pair
+        C = in_channels
+        self.proj_1x1 = ConvNormAct(out_channels, C, 1, norm=norm)
+        self.spp_dw = nn.ModuleList(
+            [DilatedConvNorm(C, C, 5, 1, groups=C, norm=norm)]
+            + [DilatedConvNorm(C, C, 2 * down_stride + 1, stride=down_stride,
+                               groups=C, norm=norm)
+               for _ in range(1, upsampling_depth)])
+        if pool == "conv":
+            self.conv_pool = nn.ModuleList(
+                [DilatedSeparableConvNorm(C, C, 5, 1, groups=C, norm=norm)]
+                + [DilatedSeparableConvNorm(C, C, 2 * 2 ** i + 1,
+                                            stride=2 ** i, groups=C,
+                                            norm=norm)
+                   for i in range(1, upsampling_depth)])
+        self.globalatt = GA(C, fixed_mha=fixed_mha, drop_path=drop_path,
+                            attn_dropout=attn_dropout, ffn_drop=ffn_drop,
+                            norm=norm, mha_kwargs=mha_kwargs,
+                            use_attn=ga_use_attn)
+        self.last_layer = nn.ModuleList(
+            [LA(C, C, 5, norm=norm) for _ in range(upsampling_depth - 1)])
+        self.res_conv = nn.Conv1d(C, out_channels, 1)
+
+    def forward(self, x, per_utterance=False, training=False,
+                generator=None):
+        residual, d = x, self.depth
+        output = [self.spp_dw[0](self.proj_1x1(x))]
+        for k in range(1, d):
+            output.append(self.spp_dw[k](output[-1]))
+        if self.pool == "conv":
+            pooled = [self.conv_pool[d - k - 1](fea)
+                      for k, fea in enumerate(output)]
+        else:
+            coarsest = output[-1].shape[-1]
+            pooled = [ops.adaptive_avg_pool1d(fea, coarsest)
+                      for fea in output]
+        global_f = pooled[0]
+        for fea in pooled[1:]:
+            global_f = global_f + fea
+        global_f = self.globalatt(global_f, per_utterance, training,
+                                  generator)
+        if self.inject == "gate":
+            x_fused = [torch.sigmoid(ops.interpolate_nearest(
+                global_f, o.shape[-1])) * o for o in output]
+        else:
+            x_fused = [ops.interpolate_nearest(global_f, o.shape[-1]) + o
+                       for o in output]
+        first = d - 3 if self.expand_pair == "prev" else d - 1
+        expanded = None
+        for i in range(d - 2, -1, -1):
+            g = x_fused[first] if i == d - 2 else expanded
+            expanded = self.last_layer[i](x_fused[i], g)
+        return ops.conv1d(expanded, self.res_conv.weight,
+                          self.res_conv.bias) + residual
+
+
+def _iteration_generator(seed, like):
+    """The generator of one block iteration's dropout masks, on like's
+    device, or None outside training (``seed`` None)."""
+    if seed is None:
+        return None
+    gen = torch.Generator(device=like.device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _draw_seed(generator, training):
+    """An iteration's seed, drawn from ``generator`` before the iteration
+    runs, so a recomputed iteration draws the same masks."""
+    if not training:
+        return None
+    return int(torch.randint(2 ** 62, (), generator=generator,
+                             device=generator.device))
+
+
 class Recurrent(nn.Module):
-    """One shared UConvBlock applied ``_iter`` times; from the second
-    iteration its input is concat_block(mixture + x).
+    """One shared block applied ``_iter`` times; from the second iteration
+    its input is concat_block(mixture + x). The block is ``block`` when
+    given (a UConvBlockInject of the variant family), else TDANetBest's
+    UConvBlock of ``fixed_mha``.
 
     ``remat`` (False, True or "scales") checkpoints each iteration where
     autograd records the graph: ``torch.utils.checkpoint`` (non-reentrant)
@@ -306,10 +497,10 @@ class Recurrent(nn.Module):
     recomputed iteration draws the same masks."""
 
     def __init__(self, out_channels=128, in_channels=512, upsampling_depth=4,
-                 _iter=4, fixed_mha=False, remat=False):
+                 _iter=4, fixed_mha=False, remat=False, block=None):
         super().__init__()
-        self.unet = UConvBlock(out_channels, in_channels, upsampling_depth,
-                               fixed_mha=fixed_mha)
+        self.unet = block if block is not None else UConvBlock(
+            out_channels, in_channels, upsampling_depth, fixed_mha=fixed_mha)
         self.iter = _iter
         self.remat = remat
         self.concat_block = nn.Sequential(
@@ -329,10 +520,8 @@ class Recurrent(nn.Module):
         remat = bool(self.remat) and torch.is_grad_enabled()
         mixture = x
         for i in range(it_count):
-            seed = (int(torch.randint(2 ** 62, (), generator=generator,
-                                      device=generator.device))
-                    if training else None)
-            args = (x, mixture, i > 0, per_utterance, training, seed)
+            args = (x, mixture, i > 0, per_utterance, training,
+                    _draw_seed(generator, training))
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     self._iteration, *args, use_reentrant=False)
@@ -384,15 +573,79 @@ class Recurrent(nn.Module):
     def _iteration(self, x, mixture, concat, per_utterance, training, seed):
         """One iteration; its dropout masks come from a generator on x's
         device seeded with ``seed``."""
-        gen = None
-        if training:
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(seed)
         if concat:
             x = self._concat(mixture + x)
-        return self.unet(x, per_utterance, training, gen)
+        return self.unet(x, per_utterance, training,
+                         _iteration_generator(seed, x))
 
     def _concat(self, inp):
         conv, act = self.concat_block
         y = ops.conv1d(inp, conv.weight, conv.bias, groups=conv.groups)
         return ops.prelu(y, act.weight)
+
+
+class _GateConvPair(nn.Sequential):
+    """Depthwise k3 conv -> 1x1 conv (a reset or update gate's convs)."""
+
+    def __init__(self, channels, kernel=3):
+        super().__init__(
+            nn.Conv1d(channels, channels, kernel, padding=kernel // 2,
+                      groups=channels),
+            nn.Conv1d(channels, channels, 1))
+
+    def forward(self, x):
+        dw, pw = self
+        y = ops.conv1d(x, dw.weight, dw.bias, padding=dw.padding[0],
+                       groups=dw.groups)
+        return ops.conv1d(y, pw.weight, pw.bias)
+
+
+class GatedRecurrent(nn.Module):
+    """GRU-style gated recurrence around the shared block
+    (TDANetGateVariant): reset and update convolution gates on (mixture,
+    x), each sigmoid(GroupNorm(1, C, eps=1e-6)(conv_x(mixture) +
+    conv_h(x))); an iteration's output is unet(prelu(x)) * u + mixture * r.
+    The first iteration is unet(prelu(x)). ``concat_block``,
+    ``output_conv_x``, ``output_conv_h`` and ``output_norm`` are parameters
+    of the reference that its forward never reads; they are kept for the
+    checkpoint. No iteration is checkpointed (the JAX class has no remat).
+    In training every iteration's dropout masks come from a generator of
+    its own, seeded from ``generator`` before the iteration."""
+
+    def __init__(self, out_channels, block, _iter=4):
+        super().__init__()
+        C = out_channels
+        self.unet = block
+        self.iter = _iter
+        self.concat_block = nn.Sequential(nn.Conv1d(C, C, 1, groups=C),
+                                          nn.PReLU())
+        self.reset_conv_x = _GateConvPair(C)
+        self.reset_conv_h = _GateConvPair(C)
+        self.update_conv_x = _GateConvPair(C)
+        self.update_conv_h = _GateConvPair(C)
+        self.output_conv_x = nn.Conv1d(C, C, 3, padding=1, groups=C)
+        self.output_conv_h = nn.Conv1d(C, C, 3, padding=1, groups=C)
+        self.reset_gate_norm = GroupNorm1(C, eps=1e-6)
+        self.update_gate_norm = GroupNorm1(C, eps=1e-6)
+        self.output_norm = GroupNorm1(C, eps=1e-6)
+        self.in_act = nn.PReLU()
+
+    def forward(self, x, per_utterance=False, training=False,
+                generator=None):
+        if training and generator is None:
+            raise ValueError("training needs a torch.Generator")
+        mixture = x
+        x = self._unet(x, per_utterance, training, generator)
+        for _ in range(1, self.iter):
+            r = torch.sigmoid(self.reset_gate_norm(
+                self.reset_conv_x(mixture) + self.reset_conv_h(x)))
+            u = torch.sigmoid(self.update_gate_norm(
+                self.update_conv_x(mixture) + self.update_conv_h(x)))
+            h = self._unet(x, per_utterance, training, generator)
+            x = h * u + mixture * r
+        return x
+
+    def _unet(self, x, per_utterance, training, generator):
+        gen = _iteration_generator(_draw_seed(generator, training), x)
+        return self.unet(ops.prelu(x, self.in_act.weight), per_utterance,
+                         training, gen)

@@ -9,5 +9,7 @@ counterparts of ``scripts/probe_uconv_kernel.py`` and
 ``eval_path`` (the eval and CSS CLIs on the card), and the serving
 slice's ``serve_path`` (the engines checked and timed on the card),
 ``bench_streaming`` and ``bench_async_server`` (counterparts of
-``scripts/bench_streaming.py`` and ``scripts/bench_async_server.py``). Run each as
+``scripts/bench_streaming.py`` and ``scripts/bench_async_server.py``),
+and the variant family's ``variants`` (the eleven models, their training
+and times on the card). Run each as
 ``python -m tdanet_tpu_torch.probes.<name> [options]``."""

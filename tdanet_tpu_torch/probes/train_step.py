@@ -17,6 +17,7 @@ peak is ``torch.cuda.max_memory_allocated`` over those steps.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import statistics
@@ -32,7 +33,7 @@ from tdanet_tpu_torch.losses import PITLossWrapper, pairwise_neg_snr
 from tdanet_tpu_torch.system.optimizers import make_optimizer
 from tdanet_tpu_torch.system.trainer import (create_train_state,
                                              make_train_step)
-from tdanet_tpu_torch.utils.timing import card_line
+from tdanet_tpu_torch.utils.timing import card_line, snr_db
 
 RECIPE = dict(out_channels=128, in_channels=512, num_blocks=16,
               upsampling_depth=5, enc_kernel_size=4, num_sources=2,
@@ -53,10 +54,44 @@ def tone_batch(B, seconds=3.0, sr=8000, seed=0):
     return torch.from_numpy(src.sum(1)).cuda(), torch.from_numpy(src).cuda()
 
 
-def setup(remat, seed=0, **overrides):
-    """(state, step) of the recipe on the card, weights from ``seed``."""
-    from tdanet_tpu_torch.models import TDANetBest
-    model = TDANetBest(**{**RECIPE, **overrides}, remat=remat)
+def tone_mix(seconds, seed, sr=16000):
+    """Two tones plus noise, summed: one mixture (numpy float32)."""
+    rng = np.random.default_rng(seed)
+    T = int(round(seconds * sr))
+    t = np.arange(T) / sr
+    srcs = [0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * t
+                         + rng.uniform(0, 6))
+            + 0.02 * rng.standard_normal(T) for _ in range(2)]
+    return np.sum(srcs, axis=0).astype(np.float32)
+
+
+def write_split(root, n, seed, seconds=3.5, sr=8000):
+    """n utterances of two tone-plus-noise sources and their mixture, with
+    the manifests the data modules read."""
+    from tdanet_tpu_torch.utils import write_wav
+    rng = np.random.default_rng(seed)
+    T = int(seconds * sr)
+    t = np.arange(T) / sr
+    infos = {"mix_clean": [], "s1": [], "s2": []}
+    for i in range(n):
+        srcs = [0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * t
+                             + rng.uniform(0, 6))
+                + 0.02 * rng.standard_normal(T) for _ in range(2)]
+        for key, data in (("mix_clean", srcs[0] + srcs[1]), ("s1", srcs[0]),
+                          ("s2", srcs[1])):
+            path = os.path.join(root, key, f"utt{i}.wav")
+            write_wav(path, data, sr)
+            infos[key].append([path, T])
+    for key, rows in infos.items():
+        with open(os.path.join(root, f"{key}.json"), "w") as f:
+            json.dump(rows, f)
+
+
+def setup(remat, seed=0, model="TDANetBest", **overrides):
+    """(state, step) of the recipe's widths on the card for the registered
+    ``model``, weights from ``seed``."""
+    from tdanet_tpu_torch import models
+    model = models.get(model)(**{**RECIPE, **overrides}, remat=remat)
     tx = make_optimizer("adam", lr=2e-3, grad_clip=5.0)
     state = create_train_state(model, tx,
                                torch.Generator().manual_seed(seed),
@@ -71,11 +106,136 @@ def counts():
     return dw_conv_glob_ln.launches, dw_conv_glob_ln_backward.launches
 
 
-def time_steps(B, remat, steps=5, warmup=2):
+def _expect(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def loss_and_grads(model, loss_fn, mix, src, **kw):
+    """One forward and backward; (loss, {name: gradient})."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model(mix, **kw), src)
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+def check_gradients(model, sites, dead=0, seed=3, limit_db=50.0):
+    """``model`` (on the CPU, fp32, seeded) at B=2, 1 s fp32 on the card:
+    #1's (forward, backward) launches of one step exactly (sites, sites -
+    dead) without checkpointing and (2 sites, sites - dead) with it
+    (``dead`` sites never reach the loss); each parameter's gradient
+    against the same model in float64 on the CPU, SNR >= ``limit_db``;
+    with dropout on, the gradients with and without checkpointing equal
+    to >= 60 dB. Returns (the lowest SNR, {remat: launches})."""
+    name = type(model).__name__
+    loss_fn = PITLossWrapper(pairwise_neg_snr, threshold_byloss=True)
+    cpu64 = copy.deepcopy(model).double()
+    model = model.cuda()
+    mix, src = tone_batch(2, seconds=1.0, seed=seed)
+    grads, launches = {}, {}
+    for remat, want in ((False, (sites, sites - dead)),
+                        (True, (2 * sites, sites - dead))):
+        model.sm.remat = remat
+        before = counts()
+        loss, grads[remat] = loss_and_grads(model, loss_fn, mix, src)
+        torch.cuda.synchronize()
+        got = launches[remat] = tuple(
+            a - b for a, b in zip(counts(), before))
+        print(f"{name} step B=2 1 s fp32, checkpointing {remat}: loss "
+              f"{loss.item():.4f}; #1 launches forward {got[0]}, backward "
+              f"{got[1]} (expected {want})")
+        _expect(got == want, f"{got} launches of #1 (forward, backward) in "
+                             f"one step, expected {want}")
+    t0 = time.perf_counter()
+    loss64, g64 = loss_and_grads(cpu64, loss_fn, mix.cpu().double(),
+                                 src.cpu().double())
+    print(f"CPU float64 plain path: loss {loss64.item():.4f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    _expect(set(g64) == set(grads[False]), "the card and the CPU differ in "
+            "which parameters have a gradient")
+    snrs = {n: snr_db(g64[n], grads[False][n].cpu()) for n in g64}
+    low = sorted(snrs.items(), key=lambda kv: kv[1])
+    print(f"{len(snrs)} parameter gradients, card fp32 vs CPU float64: "
+          f"lowest SNR {low[0][1]:.2f} dB ({low[0][0]}), median "
+          f"{statistics.median(snrs.values()):.2f} dB (limit {limit_db:g})")
+    for n, v in low[:3]:
+        print(f"  {v:.2f} dB {n}")
+    _expect(low[0][1] >= limit_db, "a gradient disagrees with the CPU")
+    drop = {}
+    for remat in (False, True):
+        model.sm.remat = remat
+        _, drop[remat] = loss_and_grads(
+            model, loss_fn, mix, src, training=True,
+            generator=torch.Generator().manual_seed(5))
+    same = min(snr_db(drop[False][n], drop[True][n]) for n in drop[False])
+    print(f"dropout on: gradients with and without checkpointing, lowest "
+          f"SNR {same:.2f} dB (limit 60)")
+    _expect(same >= 60.0, "checkpointed gradients differ with dropout on")
+    torch.cuda.synchronize()
+    return low[0][1], launches
+
+
+def train_and_resume(conf, tr, cv, exp):
+    """``audio_train.main`` on the config file ``conf`` through the
+    port's parser, with the data dirs ``tr`` and ``cv``: 2 epochs from
+    #1's launch counts at 0, then a resume for a third. Checks a finite
+    history, best_model.pth's forward against the trained best model's
+    (2 s at 8 kHz, fp32) and the resumed epoch. Returns (trainer, resumed
+    trainer, #1's (forward, backward) launches of the 2 epochs)."""
+    from tdanet_tpu_torch import audio_train
+    from tdanet_tpu_torch.models import BaseModel
+    from tdanet_tpu_torch.utils.parser import parse_config
+
+    def config(epochs, *extra):
+        return parse_config([
+            "--conf_dir", conf,
+            f"datamodule.data_config.train_dir={tr}",
+            f"datamodule.data_config.valid_dir={cv}",
+            f"datamodule.data_config.test_dir={cv}",
+            f"training.epochs={epochs}", f"main_args.exp_dir={exp}",
+            "exp.project=null", *extra])
+
+    dw_conv_glob_ln.launches = dw_conv_glob_ln_backward.launches = 0
+    t0 = time.perf_counter()
+    trainer = audio_train.main(config(2))
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"audio_train.main {conf}: 2 epochs in "
+          f"{time.perf_counter() - t0:.1f} s (first calls included); #1 "
+          f"launches forward {launches[0]}, backward {launches[1]}")
+    hist = trainer.history
+    _expect([r["epoch"] for r in hist] == [0, 1] and all(
+        np.isfinite([r["train_loss"], r["val_loss"]]).all() for r in hist),
+        f"bad history {hist}")
+    for name in ("history.json", "best_k_models.json", "best_model.pth",
+                 "conf.yml", "extras.json"):
+        _expect(os.path.exists(os.path.join(exp, name)),
+                f"no {name} in the experiment dir")
+    loaded = BaseModel.from_pretrain(
+        os.path.join(exp, "best_model.pth")).cuda()
+    _expect(type(loaded) is type(trainer.best_model),
+            f"best_model.pth holds {type(loaded).__name__}")
+    wav = torch.from_numpy(tone_mix(2.0, seed=4, sr=8000)).cuda()[None]
+    with torch.no_grad():
+        a, b = loaded(wav), trainer.best_model(wav)
+    err = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"from_pretrain(best_model.pth) vs the trained best model, 2 s "
+          f"fp32 forward: max|d|/max|ref| {err:.2e} (limit 1e-6)")
+    _expect(err <= 1e-6 and bool(torch.isfinite(a).all()),
+            "best_model.pth does not give the trained model's forward")
+    resumed = audio_train.main(config(3, "main_args.resume=true"))
+    _expect([r["epoch"] for r in resumed.history] == [2],
+            f"resume ran {resumed.history}")
+    print(f"resume: epoch 2 only, {resumed.history[0]}")
+    return trainer, resumed, launches
+
+
+def time_steps(B, remat, steps=5, warmup=2, model="TDANetBest"):
     """The step's median ms over ``steps`` after ``warmup``, its runs, the
     peak allocated bytes, and #1's forward and backward launches per
-    step."""
-    state, step = setup(remat)
+    step, for the registered ``model`` at the recipe's widths."""
+    state, step = setup(remat, model=model)
     mix, src = tone_batch(B)
     for i in range(warmup):
         state, loss = step(state, mix, src,
@@ -92,10 +252,11 @@ def time_steps(B, remat, steps=5, warmup=2):
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0) * 1e3)
     per_step = tuple((a - b) // steps for a, b in zip(counts(), before))
-    row = dict(B=B, remat=bool(remat), ms=statistics.median(runs),
-               runs=runs, peak_bytes=torch.cuda.max_memory_allocated(),
+    row = dict(model=model, B=B, remat=bool(remat),
+               ms=statistics.median(runs), runs=runs,
+               peak_bytes=torch.cuda.max_memory_allocated(),
                launches_per_step=per_step, loss=loss.item())
-    print(f"train step B={B} 3 s bf16 checkpointing "
+    print(f"{model} train step B={B} 3 s bf16 checkpointing "
           f"{'on' if remat else 'off'}: median {row['ms']:.1f} ms (runs "
           f"{[round(r, 1) for r in runs]}), peak "
           f"{row['peak_bytes'] / 2**30:.2f} GiB allocated; #1 launches per "

@@ -47,7 +47,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tdanet_tpu_torch.utils.separator import separate_batched, trim_renorm
+from tdanet_tpu_torch.utils.separator import (
+    depth_kw, separate_batched, trim_renorm)
 
 # CUDA captures one graph at a time in a process, whatever the engine; the
 # lock also keeps each capture's stream to the one thread that holds it
@@ -327,8 +328,9 @@ def pcm16(est):
 def _model_forward(model, compute_dtype, num_blocks):
     """The (B, T) -> (B, n_src, T) forward, every row as if alone (the
     counterpart of the JAX engines' vmap)."""
-    return lambda x: model(x, num_blocks=num_blocks, per_utterance=True,
-                           compute_dtype=compute_dtype)
+    depth = depth_kw(num_blocks)
+    return lambda x: model(x, per_utterance=True,
+                           compute_dtype=compute_dtype, **depth)
 
 
 class StreamingSeparator:

@@ -15,6 +15,13 @@ import torch
 PREFETCH_BATCHES = 2
 
 
+def depth_kw(num_blocks):
+    """The forward's early-exit keyword: none at the full depth, so a
+    model without early exit (the TDANet variants) runs, and raises
+    TypeError only when a depth is asked for, as in the JAX package."""
+    return {} if num_blocks is None else {"num_blocks": num_blocks}
+
+
 def _device_dtype(model):
     p = next(model.parameters())
     return p.device, p.dtype
@@ -46,7 +53,7 @@ def separate(model, wav, lattice=None, num_blocks=None):
     target = -(-T // lattice) * lattice
     with torch.inference_mode():
         xp = torch.nn.functional.pad(x, (0, target - T))
-        out = model(xp, num_blocks=num_blocks)[..., :T]
+        out = model(xp, **depth_kw(num_blocks))[..., :T]
         # per-utterance energy renormalisation over the true region
         scale = x.abs().sum(-1)[:, None, None] / (
             out.abs().sum((-1, -2))[:, None, None] + 1e-8)
@@ -146,8 +153,8 @@ def _dispatch(model, batch, num_blocks, compute_dtype=None):
         x = x.pin_memory()
     with torch.inference_mode():
         x = x.to(device=device, dtype=dtype, non_blocking=cuda)
-        est = model(x, num_blocks=num_blocks, per_utterance=True,
-                    compute_dtype=compute_dtype)
+        est = model(x, per_utterance=True, compute_dtype=compute_dtype,
+                    **depth_kw(num_blocks))
         est = est.to(torch.promote_types(est.dtype, torch.float32))
         if not cuda:
             return est, None

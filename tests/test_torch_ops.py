@@ -103,7 +103,7 @@ def test_gelu_is_the_exact_erf_form():
 
 @pytest.mark.parametrize("n_in,n_out,K,groups,bias", [
     (12, 20, 1, 1, False),    # MlpConv's fc1
-    (16, 16, 5, 16, True)])   # depthwise: stays off the fused GlobLN kernel
+    (16, 16, 5, 16, True)])   # depthwise: the fused kernel (plain on the CPU)
 def test_conv_norm_gn_matches_jax(n_in, n_out, K, groups, bias):
     from tdanet_tpu.models.components import ConvNorm as J
     from tdanet_tpu_torch.models.components import ConvNorm
@@ -119,7 +119,7 @@ def test_conv_norm_gn_matches_jax(n_in, n_out, K, groups, bias):
         jax.tree_util.tree_map(jnp.asarray, p), x_), x)
     m = ConvNorm(n_in, n_out, K, groups=groups, bias=bias,
                  norm="gn").double()
-    assert not m.depthwise
+    assert m.on_kernel == (groups == n_in == n_out)
     assert set(m.state_dict()) == {f"{a}.{b}" for a in p for b in p[a]}
     m.load_state_dict({f"{a}.{b}": _t(v) for a in p
                        for b, v in p[a].items()})

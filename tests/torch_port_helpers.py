@@ -20,6 +20,15 @@ def perturb_flat(flat, seed=0, scale=0.1):
     return out
 
 
+def jax_init_flat(init, seed=0):
+    """Perturbed flat f32 parameters of a JAX ``init(key)`` (a model's or
+    a block's), from ``seed``."""
+    import jax
+    from tdanet_tpu.models import pytree_to_flat_torch
+    flat = pytree_to_flat_torch(jax.jit(init)(jax.random.PRNGKey(seed)))
+    return perturb_flat(flat, seed)
+
+
 def jax_tdanet_best(cfg, seed=0):
     """(JAX model, perturbed flat f32 params) for a TDANetBest config."""
     import jax
