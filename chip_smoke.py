@@ -75,8 +75,9 @@ exit code is not 0:
   15. gradients of the recipe's model at full width (out 128, in 512, 16
      blocks, depth 5, 4 ms, 8 kHz, 2 sources, seeded weights), B 2, 1 s,
      fp32, stochastic layers off, PIT neg-SNR: every parameter's gradient
-     against the same model in float64 on the CPU through the plain path
-     (SNR >= 50 dB); #1's launches per step exactly 512 forward / 464
+     against the same model in float64 on the CPU through the plain path,
+     taken at the card step's side of every activation kink (SNR >= 50
+     dB); #1's launches per step exactly 512 forward / 464
      backward without checkpointing and 1024 / 464 with it (the coarsest
      LA fusion's 3 sites a block never reach the loss); with dropout on,
      the gradients with and without checkpointing agree (SNR >= 60 dB);
@@ -164,13 +165,37 @@ exit code is not 0:
      (TDANetOrigin, B 8, 3 s, bf16, checkpointing) on phase 16's data, 2
      epochs and a resume, #1's forward and backward launches exact over
      the run and per step (544, 272); TDANetYang's gradients (B 2, 1 s,
-     fp32) against CPU float64 >= 50 dB, launches per step exact with and
-     without checkpointing; times: TDANetYang's forward (B 1, 2 s, fp32)
-     eager and replayed with #1's share of device time, the train step
-     (B 8, 3 s, bf16) of TDANetOrigin with checkpointing and TDANetYang
-     without, as audio_train builds each; every site the phase launched
-     #1 at (training, validation, gradients, timed runs) recorded and
-     held against plain, forward and backward.
+     fp32) against CPU float64 at the card's kinks >= 50 dB, launches per
+     step exact with and without checkpointing; times: TDANetYang's
+     forward (B 1, 2 s, fp32) eager and replayed with #1's share of
+     device time, the train step (B 8, 3 s, bf16) of TDANetOrigin with
+     checkpointing and TDANetYang without, as audio_train builds each;
+     every site the phase launched #1 at (training, validation,
+     gradients, timed runs) recorded and held against plain, forward and
+     backward.
+  24. the EMCAD-era family (probes/era.py), from #1's launch counts at 0:
+     the 22 classes of models/tdanet_emcad.py at configs/tdanet_origin.yml's
+     widths (16 blocks, depth 5) at 16 kHz, feat_len for a 2 s clip,
+     seeded weights through a .pth and from_pretrain; each model's sites
+     (with their channels and eps) found on the plain path and held
+     against plain first, then ``separate`` on a 2 s clip through #1,
+     #1's launches exactly the class's sites x 16 a forward (22 x 16 for
+     TDANetEMCADv1_6); TDANetEMCADv1_6 against float64 on the CPU at 16
+     blocks, the other 21 at 2 blocks (the same .pth), >= 90 dB;
+     TDANetEMCADv1_6's forward eager and replayed, and a profiled window
+     of replays (#1's device kernels 352 a replay, its share, the top
+     kernels);
+  25. the EMCAD-era family's training: TDANetEMCADv1_6's gradients at the
+     recipe's widths (B 2, 1 s, fp32) against CPU float64 at the card's
+     kinks >= 50 dB, launches per step exact with and without
+     checkpointing; #1 at every site's own operands of that step against
+     float64, within 6 dB of its plain version; audio_train on
+     configs/tdanet.yml with the model swapped (a config in the temp dir
+     with feat_len for 3 s) on phase 16's data, 2 epochs and a resume,
+     #1's forward and backward launches exact over the run; the train
+     step (B 8, 3 s, bf16, checkpointing) timed with its peak memory and
+     launches; every site the phase launched #1 at held against plain,
+     forward and backward, at its channels and eps.
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
 the result line.
@@ -202,7 +227,7 @@ from tdanet_tpu_torch.models import (
     BaseModel, SwinTransformer, SwinTransformerSys, TDANetBest)
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
-    dw_backward, dw_sites, eval_path, hybrid, mosaic_ops, mosaic_ops2,
+    dw_backward, dw_sites, era, eval_path, hybrid, mosaic_ops, mosaic_ops2,
     serve_path, train_step, uconv_halves, uconv_kernel, variants)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.probes.train_step import tone_mix
@@ -1092,10 +1117,19 @@ def main():
             card, tmp, data=(os.path.join(tmp, "tr"),
                              os.path.join(tmp, "cv")))
         torch.cuda.synchronize()
+        phase("24 EMCAD-era family (launch counts from 0)")
+        era_family, era_launches = era.drive_family(card, tmp)
+        torch.cuda.synchronize()
+        phase(f"25 the EMCAD-era family's training (card: {card})")
+        era_training, era_train = era.drive_family_training(
+            card, tmp, data=(os.path.join(tmp, "tr"),
+                             os.path.join(tmp, "cv")))
+        torch.cuda.synchronize()
     print(json.dumps({"eval": evaluated, "css": css}))
     print(json.dumps({"serve": serve, "serve_times": serve_times}))
     print(json.dumps({"variants": family, "variant_training":
                       family_training}))
+    print(json.dumps({"era": era_family, "era_training": era_training}))
     kernels[0]["train_launches"] = train_launches[0]
     kernels[0]["eval_launches"] = evaluated["eval_launches"]
     kernels[0]["css_launches"] = css["css_launches"]
@@ -1111,6 +1145,12 @@ def main():
     # audio_train run on configs/tdanet_origin.yml
     kernels[0]["variant_launches"] = variant_launches
     kernels[0]["variant_train_launches"] = list(variant_train)
+    # phase 24: #1's launches over the 22 era models' forwards (the 16-block
+    # requests and the 2-block ones held against float64; checks
+    # excluded); phase 25: its (forward, backward) launches over the
+    # audio_train run of TDANetEMCADv1_6
+    kernels[0]["era_launches"] = era_launches
+    kernels[0]["era_train_launches"] = list(era_train)
     kernels.append(backward_entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,9 +24,9 @@
 //   Phase 1: a CTA of 512 threads stages each tile's input rows plus the
 //     K-1 halo in shared memory (clamped and masked at the edges),
 //     computes the conv in fp32 and the tile's (count, mean, M2) in one
-//     reduction, about the tile's first value, and folds the tiles of a
-//     sample, in tile order, into one part per (sample, CTA): a float4 in
-//     a (B, G, 4) buffer. No conv output is stored: the first and the
+//     reduction in fp64, about the tile's first value, and folds the tiles
+//     of a sample, in tile order, into one part per (sample, CTA): four
+//     doubles in a (B, G, 4) buffer. No conv output is stored: the first and the
 //     last tile's values stay in registers.
 //   One grid barrier (cooperative_groups::this_grid().sync()).
 //   Phase 2: per sample, a CTA merges the parts of the CTAs that own the
@@ -40,10 +40,15 @@
 // the output is the same bit for bit from run to run. Where a gradient
 // is wanted, the CTA that owns a sample's first tile also writes the
 // sample's (hi, lo, rstd), which the backward kernel
-// (dw_conv_glob_ln_backward.cu) reads. (count, mean, M2)
-// rather than (sum, sum of squares), with each mean held as hi + lo (a
-// value of the data and the rest): no precision goes to a large common
-// offset of the activations. The tap count and the stride are template
+// (dw_conv_glob_ln_backward.cu) reads. The statistics are fp64 from the
+// tile's sums on (the conv values and the output stay fp32): an error of
+// the variance scales the whole sample's output and its gradient alike,
+// so unlike an element's rounding it does not average out downstream; in
+// fp32 the tiles' one-pass sums left it at up to 1e-6, ten times the
+// plain fp32 form's, which the model's gradients amplified. (count, mean,
+// M2) rather than (sum, sum of squares), with each mean held as hi + lo
+// (a value of the data and the rest): no precision goes to a large
+// common offset of the activations. The tap count and the stride are template
 // constants, so every tap's load is issued before the arithmetic; a
 // stride-2 tile is staged in two phases (even rows, then odd) so
 // neighbouring threads read neighbouring words. Rows of the model's
@@ -80,9 +85,9 @@ struct Geometry {
 
 // A sample's statistics, or a part of them: count, mean = hi + lo (hi a
 // value of the data, the first tile's first conv value; lo the rest),
-// and M2, the sum of squared deviations from the mean.
+// and M2, the sum of squared deviations from the mean; in fp64.
 struct Stats {
-  float n, hi, lo, m2;
+  double n, hi, lo, m2;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -98,13 +103,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 // (b.hi - a.hi) + (b.lo - a.lo): near a common offset the first term is
 // exact, so no precision goes to the offset. a keeps its hi.
 __device__ __forceinline__ void merge(Stats& a, const Stats& b) {
-  if (b.n == 0.f) return;
-  if (a.n == 0.f) {
+  if (b.n == 0.0) return;
+  if (a.n == 0.0) {
     a = b;
     return;
   }
-  const float n = a.n + b.n, r = 1.f / n;
-  const float d = (b.hi - a.hi) + (b.lo - a.lo);
+  const double n = a.n + b.n, r = 1.0 / n;
+  const double d = (b.hi - a.hi) + (b.lo - a.lo);
   a.lo += d * (b.n * r);
   a.m2 += b.m2 + d * d * (a.n * r) * b.n;
   a.n = n;
@@ -127,7 +132,7 @@ __device__ Stats block_merge(Stats s, Stats* red) {
   if (lane == 0) red[wid] = s;
   __syncthreads();
   if (wid == 0) {
-    s = lane < kWarps ? red[lane] : Stats{0.f, 0.f, 0.f, 0.f};
+    s = lane < kWarps ? red[lane] : Stats{0.0, 0.0, 0.0, 0.0};
 #pragma unroll
     for (int o = kWarps / 2; o > 0; o >>= 1) merge(s, shfl_down(s, o));
     if (lane == 0) red[kWarps] = s;
@@ -137,8 +142,9 @@ __device__ Stats block_merge(Stats s, Stats* red) {
 }
 
 // Two sums over the CTA in a fixed order (an xor butterfly in each warp,
-// the warps in order); every thread gets them. red: 2 * kWarps floats.
-__device__ __forceinline__ void block_sum2(float& u, float& v, float* red) {
+// the warps in order); every thread gets them. red: 2 * kWarps doubles.
+__device__ __forceinline__ void block_sum2(double& u, double& v,
+                                           double* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     u += __shfl_xor_sync(0xffffffffu, u, o);
@@ -261,30 +267,31 @@ struct Tile {
 
   // The tile's statistics, about its first value y0 (the conv at its
   // first row and channel, which every thread computes alike from shared
-  // memory): one reduction of the sum and the squares of y - y0. The
-  // mean is held as y0 + lo, so no precision goes to a common offset.
+  // memory): one reduction of the sum and the squares of y - y0, in
+  // fp64. The mean is held as y0 + lo, so no precision goes to a common
+  // offset.
   __device__ static __forceinline__ Stats stats(const float (&acc)[kPerThread],
                                                 const float* tile,
                                                 const float* ws,
                                                 const float* ps, int nt,
-                                                int nc, float* red) {
+                                                int nc, double* red) {
     float y0 = 0.f;
 #pragma unroll
     for (int k = 0; k < K; ++k) y0 += tile[tap(0, k, 0)] * ws[k];
     y0 += ps[0];
-    float s1 = 0.f, s2 = 0.f;
+    double s1 = 0.0, s2 = 0.0;
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       int tl, cl;
       coords(i, tl, cl);
-      const float d = acc[i] - y0;
+      const double d = static_cast<double>(acc[i]) - y0;
       if (tl < nt && cl < nc) {
         s1 += d;
         s2 += d * d;
       }
     }
     block_sum2(s1, s2, red);
-    const float n = static_cast<float>(nt * nc), lo = s1 / n;
+    const double n = static_cast<double>(nt * nc), lo = s1 / n;
     return {n, y0, lo, s2 - s1 * lo};
   }
 };
@@ -294,14 +301,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dw_conv_glob_ln_kernel(const TX* __restrict__ x, TX* __restrict__ out,
                        const TP* __restrict__ w, const TP* __restrict__ bias,
                        const TP* __restrict__ gamma,
-                       const TP* __restrict__ beta, float4* partials,
+                       const TP* __restrict__ beta, double2* partials,
                        float* stats, Geometry g) {
   using Tl = Tile<TX, TP, K, S, TC>;
   __shared__ float tile[Tl::kSmem];
   __shared__ float ws[kTileC * K];
   // bias, gamma, beta of the first tile, then of the one being staged
   __shared__ float ps[2 * 3 * kTileC];
-  __shared__ float red[2 * kWarps];
+  __shared__ double red[2 * kWarps];
   __shared__ Stats red_stats[kWarps + 1];
 
   const int G = gridDim.x, j = blockIdx.x, N = g.n_tiles;
@@ -320,22 +327,24 @@ dw_conv_glob_ln_kernel(const TX* __restrict__ x, TX* __restrict__ out,
     __syncthreads();
   };
   auto put = [&](int b, const Stats& s) {  // this CTA's part of sample b
-    if (threadIdx.x == 0)
-      partials[b * G + j] = make_float4(s.n, s.hi, s.lo, s.m2);
+    if (threadIdx.x == 0) {
+      partials[2 * (b * G + j)] = make_double2(s.n, s.hi);
+      partials[2 * (b * G + j) + 1] = make_double2(s.lo, s.m2);
+    }
   };
 
   // phase 1: statistics, folded per (sample, CTA) in tile order; the
   // conv values of the first and the last tile stay in registers
   float acc[kPerThread], first[kPerThread];
   int cur = lo / g.per_sample;
-  Stats part{0.f, 0.f, 0.f, 0.f};
+  Stats part{0.0, 0.0, 0.0, 0.0};
   for (int i = lo; i < hi; ++i) {
     int b, t0, c0;
     box(i, b, t0, c0);
     if (b != cur) {
       put(cur, part);
       cur = b;
-      part = Stats{0.f, 0.f, 0.f, 0.f};
+      part = Stats{0.0, 0.0, 0.0, 0.0};
     }
     float* slot = i == lo ? ps : ps + 3 * kTileC;
     stage(i, slot);
@@ -352,10 +361,9 @@ dw_conv_glob_ln_kernel(const TX* __restrict__ x, TX* __restrict__ out,
   cg::this_grid().sync();
 
   // phase 2: per sample, merge the parts of its CTAs in CTA order, then
-  // normalise as ((y - hi) - lo) * rstd
+  // normalise as ((y - hi) - lo) * rstd, hi, lo and rstd rounded to fp32
   int stat_b = -1;
-  Stats st{};
-  float rstd = 0.f;
+  float hi_f = 0.f, lo_f = 0.f, rstd = 0.f;
   auto normalise = [&](const float (&vals)[kPerThread], int i,
                        const float* slot) {
     int b, t0, c0;
@@ -364,18 +372,21 @@ dw_conv_glob_ln_kernel(const TX* __restrict__ x, TX* __restrict__ out,
       const int first_tile = b * g.per_sample;
       const int j0 = owner(first_tile, N, G);
       const int j1 = owner(first_tile + g.per_sample - 1, N, G);
-      Stats s{0.f, 0.f, 0.f, 0.f};
+      Stats s{0.0, 0.0, 0.0, 0.0};
       for (int jj = j0 + threadIdx.x; jj <= j1; jj += kThreads) {
-        const float4 p = __ldcg(partials + b * G + jj);
-        merge(s, Stats{p.x, p.y, p.z, p.w});
+        const double2 p = __ldcg(partials + 2 * (b * G + jj));
+        const double2 q = __ldcg(partials + 2 * (b * G + jj) + 1);
+        merge(s, Stats{p.x, p.y, q.x, q.y});
       }
-      st = block_merge(s, red_stats);
-      rstd = rsqrtf(st.m2 / st.n + g.eps);
+      const Stats st = block_merge(s, red_stats);
+      hi_f = static_cast<float>(st.hi);
+      lo_f = static_cast<float>(st.lo);
+      rstd = static_cast<float>(1.0 / sqrt(st.m2 / st.n + g.eps));
       stat_b = b;
     }
     if (stats != nullptr && threadIdx.x == 0 && i == b * g.per_sample) {
-      stats[3 * b] = st.hi;
-      stats[3 * b + 1] = st.lo;
+      stats[3 * b] = hi_f;
+      stats[3 * b + 1] = lo_f;
       stats[3 * b + 2] = rstd;
     }
     TX* ob = out + b * g.ob;
@@ -386,7 +397,7 @@ dw_conv_glob_ln_kernel(const TX* __restrict__ x, TX* __restrict__ out,
       const int t = t0 + tl, c = c0 + cl;
       if (t < g.T_out && c < g.C)
         store(ob + t * g.ot + c * g.oc,
-              ((vals[k] - st.hi) - st.lo) * rstd * slot[kTileC + cl] +
+              ((vals[k] - hi_f) - lo_f) * rstd * slot[kTileC + cl] +
                   slot[2 * kTileC + cl]);
     }
   };
@@ -462,7 +473,7 @@ int dw_conv_glob_ln_capacity(int x_bf16, int p_bf16, int K, int stride,
 
 // x, out: storage in fp32 (x_bf16 == 0) or bf16, element strides (B, T,
 // C); w (C, K), bias (C,) or null, gamma, beta (C,): contiguous, fp32
-// (p_bf16 == 0) or bf16; partials: fp32 (B, grid, 4), 16-byte aligned;
+// (p_bf16 == 0) or bf16; partials: fp64 (B, grid, 4), 16-byte aligned;
 // stats: null, or fp32 (B, 3) that receives each sample's (hi, lo, rstd),
 // mean = hi + lo. grid: the CTAs, at most the capacity and the tiles. One
 // cooperative launch on ``stream``.

@@ -11,8 +11,8 @@
 // Function. x (B, T, C) in either layout, w (C, K), bias, gamma, the
 // forward's per-sample statistics (hi, lo, rstd: mean = hi + lo), and dy
 // (B, T_out, C) with the same innermost axis as x:
-//   y  = dwconv(x) + bias, recomputed from x
-//   xh = ((y - hi) - lo) * rstd
+//   y  = dwconv(x) + bias, recomputed from x as the forward computes it
+//   xh = ((y - hi) - lo) * rstd, the forward's normalised value bit for bit
 //   dgamma = sum dy * xh, dbeta = sum dy          per channel over B, T_out
 //   g = dy * gamma; A = mean(g), M = mean(g * xh) per sample over T_out, C
 //   dz = rstd * (g - A - xh * M)
@@ -83,7 +83,10 @@
 // not bytes: a T 3010 site, which loads two thirds of its tiles twice,
 // costs the same per megabyte as a T 1505 site that keeps all of them;
 // the per-sample sums therefore come from the dgamma and dbeta sums
-// (gamma is one a channel), and xh and dz are two FMAs each.
+// (gamma is one a channel), and dz is two FMAs. xh is formed as the
+// forward forms it, not as one FMA of the conv about a per-channel
+// offset: that FMA's rounding grows with the channel's mean over its
+// spread and the model's gradients amplified it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -601,9 +604,6 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
     slo = stats[3 * b + 1];
     rstd = stats[3 * b + 2];
   };
-  // xh = fma(conv without bias, rstd, cx): cx of the channel and sample
-  float cx = 0.f;
-
   // phase 1: the dgamma and dbeta sums (dy xh and dy), and from them the
   // per-sample ones (g = dy gamma with gamma one a channel: gamma times
   // each, added per thread when its channel tile changes). Every tile
@@ -642,7 +642,6 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
       pgb[0] = pgb[1] = 0.f;
       cur_grp = grp;
       params(c0);
-      cx = ((bs - shi) - slo) * rstd;
     }
     PHASE_MARK(2)
     Lines<TX> X, Y;
@@ -656,7 +655,7 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
       float a = 0.f;
 #pragma unroll
       for (int kk = 0; kk < K; ++kk) a += xw[r * S + kk] * wk[kk];
-      const float xh = a * rstd + cx;
+      const float xh = (((a + bs) - shi) - slo) * rstd;
       pgb[0] += dv[r] * xh;
       pgb[1] += dv[r];
     }
@@ -735,8 +734,7 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
       cur_b = b;
       sample(b);
     }
-    // xh = fma(conv, rstd, cx), dz = dy rg - (xh rM + rA)
-    cx = ((bs - shi) - slo) * rstd;
+    // xh as the forward forms it, dz = dy rg - (xh rM + rA)
     const float rg = rstd * gm, rM = rstd * M, rA = rstd * A;
     PHASE_MARK(7)
     Lines<TX> X, Y;
@@ -753,7 +751,7 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
       float a = 0.f;
 #pragma unroll
       for (int kk = 0; kk < K; ++kk) a += xw[r * S + kk] * wk[kk];
-      const float xh = a * rstd + cx;
+      const float xh = (((a + bs) - shi) - slo) * rstd;
       dz[r] = dv[r] * rg - (xh * rM + rA);
     }
     if (rows_ok < kRows) {  // the ragged last tile, or a channel past C
@@ -775,7 +773,7 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
       float a = 0.f;
 #pragma unroll
       for (int kk = 0; kk < K; ++kk) a += vx.at(jr * S + kk) * wk[kk];
-      const float xh = a * rstd + cx;
+      const float xh = (((a + bs) - shi) - slo) * rstd;
       return c_ok && t >= 0 && t < g.T_out ? vy.at(jr) * rg - (xh * rM + rA)
                                            : 0.f;
     };

@@ -250,7 +250,7 @@ def _launch(x, weight, bias, gamma, beta, stride, K, eps, want_stats=False):
     x_bf16 = _STORAGE[x.dtype]
     grid = plan(B, T_out, C, capacity(x_bf16, p_bf16, K, stride, t_contig,
                                       dev.index)).grid
-    partials = torch.empty(4 * B * grid, dtype=torch.float32, device=dev)
+    partials = torch.empty(4 * B * grid, dtype=torch.float64, device=dev)
     stats = (torch.empty((B, 3), dtype=torch.float32, device=dev)
              if want_stats else None)
     err = _library().dw_conv_glob_ln_launch(

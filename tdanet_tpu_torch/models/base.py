@@ -125,21 +125,25 @@ def load_jax_params(module: nn.Module, flat: Dict[str, Any]) -> nn.Module:
 def init_parameters_(module: nn.Module, generator: torch.Generator):
     """Initialise every parameter of ``module`` from ``generator`` with the
     distributions of the JAX package's init helpers: torch-default convs,
-    unit gains and zero shifts for the norms, 0.25 PReLU slopes, xavier
-    attention input projections. Returns ``module``."""
+    unit gains and zero shifts for the norms, PReLU slopes of 0.25 (or the
+    module's ``init_value``), xavier attention input projections; a module
+    with parameters of its own kind (a weight bank, a learned table)
+    initialises them in its ``init_own_(generator)``. Returns ``module``."""
     for m in module.modules():
         if isinstance(m, nn.Conv1d):
             ops.conv1d_init_(m, generator)
         elif isinstance(m, nn.MultiheadAttention):
             ops.mha_init_(m, generator)
         elif isinstance(m, nn.PReLU):
-            m.weight.fill_(0.25)
+            m.weight.fill_(getattr(m, "init_value", 0.25))
         elif isinstance(m, (nn.LayerNorm, GroupNorm1)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, GlobLN):
             m.gamma.fill_(1.0)
             m.beta.zero_()
+        if hasattr(m, "init_own_"):
+            m.init_own_(generator)
     return module
 
 

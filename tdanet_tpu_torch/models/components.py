@@ -34,6 +34,8 @@ from tdanet_tpu_torch.ops import basic as ops
 class GlobLN(nn.Module):
     """Global LayerNorm parameters (gamma, beta) and its plain forward."""
 
+    eps = 1e-8
+
     def __init__(self, channels):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(channels))
@@ -72,38 +74,57 @@ def make_norm(channels, norm):
     raise ValueError(norm)
 
 
+def routes_to_kernel(conv, stride, padding):
+    """The one rule for #1's sites: a conv that a global norm follows runs
+    ``dw_conv_glob_ln`` when it is depthwise (groups == n_in == n_out), its
+    padding is 'same' ((K-1)//2) and ``supports(K, stride)`` holds (K odd
+    and at most 7, stride 1 or 2). Fixed at construction from the site's
+    shape alone."""
+    K = conv.kernel_size[0]
+    return (conv.groups == conv.in_channels == conv.out_channels
+            and conv.dilation[0] == 1 and padding == (K - 1) // 2
+            and supports(K, stride))
+
+
+def conv_then_norm(x, conv, norm, stride, padding, on_kernel):
+    """conv (its weight, bias or none) then ``norm`` (GlobLN or GroupNorm1,
+    with its own eps) on (B, C, T): through #1 where ``on_kernel`` (from
+    :func:`routes_to_kernel`), the norm's affine and eps passed as the
+    kernel's gamma, beta and eps; else ``ops.conv1d`` and the plain norm.
+    A kernel that fails raises: no site gives way to the plain path at
+    run time."""
+    if on_kernel:
+        return dw_conv_glob_ln(
+            x.transpose(1, 2), conv.weight, conv.bias, *norm.affine(),
+            stride=stride, K=conv.kernel_size[0],
+            eps=norm.eps).transpose(1, 2)
+    return norm(ops.conv1d(x, conv.weight, conv.bias, stride=stride,
+                           padding=padding, groups=conv.groups))
+
+
 class ConvNorm(nn.Module):
     """Conv1d ('same' padding) + a global norm: GlobLN (``norm="gln"``,
     parameters gamma and beta) or GroupNorm(1, C) (``norm="gn"``, weight and
-    bias).
+    bias), both at eps 1e-8.
 
-    The route is a static rule on the site's shape, fixed at construction
-    (``on_kernel``): a depthwise site (groups == n_in == n_out) in #1's
-    range (``supports``: K odd and at most 7, stride 1 or 2) runs
-    ``dw_conv_glob_ln`` for either
-    norm, a "gn" site passing its weight and bias where the kernel takes
-    gamma and beta (eps 1e-8 for both); every other site is ``ops.conv1d``
-    and the plain norm. A kernel that fails raises: no site gives way to
-    the plain path at run time."""
+    The route is :func:`routes_to_kernel`'s rule, fixed at construction
+    (``on_kernel``): a depthwise 'same' site in #1's range runs
+    ``dw_conv_glob_ln`` for either norm, with the norm's affine and eps;
+    every other site is ``ops.conv1d`` and the plain norm."""
 
     def __init__(self, n_in, n_out, kernel, stride=1, groups=1, bias=True,
                  norm="gln"):
         super().__init__()
         self.stride, self.kernel = stride, kernel
         self.padding = (kernel - 1) // 2
-        self.on_kernel = groups == n_in == n_out and supports(kernel, stride)
         self.conv = nn.Conv1d(n_in, n_out, kernel, stride=stride,
                               padding=self.padding, groups=groups, bias=bias)
         self.norm = make_norm(n_out, norm)
+        self.on_kernel = routes_to_kernel(self.conv, stride, self.padding)
 
     def forward(self, x):
-        conv, norm = self.conv, self.norm
-        if self.on_kernel:
-            return dw_conv_glob_ln(
-                x.transpose(1, 2), conv.weight, conv.bias, *norm.affine(),
-                stride=self.stride, K=self.kernel).transpose(1, 2)
-        return norm(ops.conv1d(x, conv.weight, conv.bias, stride=self.stride,
-                               padding=self.padding, groups=conv.groups))
+        return conv_then_norm(x, self.conv, self.norm, self.stride,
+                              self.padding, self.on_kernel)
 
 
 class ConvNormAct(ConvNorm):

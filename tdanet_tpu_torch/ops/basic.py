@@ -88,6 +88,12 @@ def conv1d(x, weight, bias=None, *, stride=1, padding=0, dilation=1,
                     groups=groups)
 
 
+def conv1d_module(x, conv, **kw):
+    """:func:`conv1d` with a Conv1d module's weight, bias and groups
+    (stride and padding as given, 0-padded stride 1 by default)."""
+    return conv1d(x, conv.weight, conv.bias, groups=conv.groups, **kw)
+
+
 def conv_transpose1d(x, weight, bias=None, *, stride=1, padding=0, groups=1):
     """torch ConvTranspose1d; weight (I, O/g, K) is already torch's layout."""
     return F.conv_transpose1d(x, weight.to(x.dtype),
@@ -143,6 +149,25 @@ def layer_norm(x, weight, bias, *, eps=1e-5):
 def gelu(x):
     """The exact (erf) GELU."""
     return F.gelu(x)
+
+
+def activation(name, x, prelu_weight=None):
+    """An activation by its config name: relu, relu6, exact gelu, hard
+    swish, leaky relu (slope 0.2), or PReLU with ``prelu_weight``."""
+    name = name.lower()
+    if name == "prelu":
+        return prelu(x, prelu_weight)
+    if name == "relu":
+        return F.relu(x)
+    if name == "relu6":
+        return torch.clamp(x, 0.0, 6.0)
+    if name == "gelu":
+        return gelu(x)
+    if name == "hswish":
+        return F.hardswish(x)
+    if name == "leakyrelu":
+        return F.leaky_relu(x, 0.2)
+    raise NotImplementedError(name)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ counterparts of ``scripts/probe_uconv_kernel.py`` and
 slice's ``serve_path`` (the engines checked and timed on the card),
 ``bench_streaming`` and ``bench_async_server`` (counterparts of
 ``scripts/bench_streaming.py`` and ``scripts/bench_async_server.py``),
-and the variant family's ``variants`` (the eleven models, their training
-and times on the card). Run each as
+the variant family's ``variants`` (the eleven models, their training
+and times on the card), and the EMCAD-era family's ``era`` (its 22
+models, the flagship's training and times). Run each as
 ``python -m tdanet_tpu_torch.probes.<name> [options]``."""

@@ -62,7 +62,7 @@ def recipe_scales(seconds=3.0, sample_rate=8000, enc_ms=4, depth=5):
     return scale_lengths((padded + 2 * (K // 2) - K) // S + 1, depth)
 
 
-def operands(B, T, K, stride, bias, gen, dtype):
+def operands(B, T, K, stride, bias, gen, dtype, C=C):
     """x as the model passes it ((B, C, T) seen as (B, T, C)) in ``dtype``,
     fp32 parameters, and dy in the output's layout."""
     x = torch.randn(B, C, T, generator=gen).to(dtype).cuda().transpose(1, 2)
@@ -76,19 +76,20 @@ def operands(B, T, K, stride, bias, gen, dtype):
     return x, w, b, g, be, dy
 
 
-def check_site(B, T, K, stride, bias, gen, dtype):
-    """One site: the kernel against plain (plain with its own one-pass
-    statistics), a rerun and a graph replay. Returns ({grad: fp32 max abs
-    error over plain's max abs, or bf16 SNR}, the largest abs error)."""
-    x, w, b, g, be, dy = operands(B, T, K, stride, bias, gen, dtype)
+def check_site(B, T, K, stride, bias, gen, dtype, C=C, eps=1e-8):
+    """One site of C channels and the norm's ``eps``: the kernel against
+    plain (plain with its own one-pass statistics), a rerun and a graph
+    replay. Returns ({grad: fp32 max abs error over plain's max abs, or
+    bf16 SNR}, the largest abs error)."""
+    x, w, b, g, be, dy = operands(B, T, K, stride, bias, gen, dtype, C)
     kw = dict(stride=stride, K=K)
     with torch.no_grad():
-        _, stats = forward_with_stats(x, w, b, g, be, **kw)
+        _, stats = forward_with_stats(x, w, b, g, be, eps=eps, **kw)
         call = (lambda: dw_conv_glob_ln_backward(dy, x, w, b, g, stats,
                                                  **kw))
         got, again = call(), call()
         ref = dw_conv_glob_ln_backward_reference(
-            dy.float(), x.float(), w, b, g, **kw)
+            dy.float(), x.float(), w, b, g, eps=eps, **kw)
         if got[0].stride() != x.stride() or got[0].dtype != x.dtype:
             raise AssertionError(f"dx {got[0].stride()} {got[0].dtype} for "
                                  f"x {x.stride()} {x.dtype}")

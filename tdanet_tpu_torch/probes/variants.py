@@ -117,14 +117,14 @@ def _cfg(name):
 
 
 @contextlib.contextmanager
-def plain_sites():
+def plain_sites(key=site_key):
     """Inside, the components' #1 calls run #1's plain version and record
-    their site keys: the shapes a run will launch #1 at, found without
-    launching it."""
+    their site keys (``key(x, K, stride, bias, **kw)``): the shapes a run
+    will launch #1 at, found without launching it."""
     fn, seen = components.dw_conv_glob_ln, set()
 
     def plain(x, weight, bias, gamma, beta, *, stride=1, K=5, **kw):
-        seen.add(site_key(x, K, stride, bias is not None))
+        seen.add(key(x, K, stride, bias is not None, **kw))
         return dw_conv_glob_ln_reference(x, weight, bias, gamma, beta,
                                          stride=stride, K=K, **kw)
 
@@ -136,15 +136,15 @@ def plain_sites():
 
 
 @contextlib.contextmanager
-def card_sites():
-    """Records the site key of every #1 launch on the card inside; the
-    plain-path calls of a float64 reference on the CPU launch nothing and
-    are not recorded."""
+def card_sites(key=site_key):
+    """Records the site key (``key(x, K, stride, bias, **kw)``) of every #1
+    launch on the card inside; the plain-path calls of a float64
+    reference on the CPU launch nothing and are not recorded."""
     fn, seen = components.dw_conv_glob_ln, set()
 
     def record(x, weight, bias, gamma, beta, *, stride=1, K=5, **kw):
         if x.is_cuda:
-            seen.add(site_key(x, K, stride, bias is not None))
+            seen.add(key(x, K, stride, bias is not None, **kw))
         return fn(x, weight, bias, gamma, beta, stride=stride, K=K, **kw)
 
     components.dw_conv_glob_ln = record
@@ -214,7 +214,7 @@ class _Sites:
         return out, plain, n
 
 
-def _cpu64_snr(model, wav, got):
+def cpu64_snr(model, wav, got):
     """SNR of the card's ``separate`` output against the same model's in
     float64 on the CPU, and the CPU's seconds."""
     cpu64 = copy.deepcopy(model).cpu().double()
@@ -227,7 +227,8 @@ def _cpu64_snr(model, wav, got):
 def profile_graph(model, wav, replays=PROFILED_REPLAYS):
     """The forward captured in one CUDA graph, ``replays`` replays under
     the profiler: (#1's device kernels, #1's device ms, all device ms,
-    all device kernels)."""
+    all device kernels, the 12 kernels of most device time as (ms,
+    count, name))."""
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         side = torch.cuda.Stream()
@@ -252,7 +253,9 @@ def profile_graph(model, wav, replays=PROFILED_REPLAYS):
     dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731 (ms)
     dw = [e for e in events if "dw_conv_glob_ln" in e.key]
     return (sum(e.count for e in dw), sum(dev(e) for e in dw),
-            sum(dev(e) for e in events), sum(e.count for e in events))
+            sum(dev(e) for e in events), sum(e.count for e in events),
+            [(dev(e), e.count, e.key[:90])
+             for e in sorted(events, key=dev, reverse=True)[:12]])
 
 
 def run_inference_cli(path, wav, tmp):
@@ -288,7 +291,7 @@ def drive_family(tmp):
                              f"expected {want_n}")
         _expect(est.shape == (2, wav.shape[-1]) and np.isfinite(est).all(),
                 f"{name}: bad output {est.shape}")
-        db, cpu_s = _cpu64_snr(model, wav, est)
+        db, cpu_s = cpu64_snr(model, wav, est)
         row = dict(launches=n, sites=SITES[name], vs_cpu64_db=db,
                    vs_plain_on_card_db=snr_db(torch.from_numpy(plain),
                                               torch.from_numpy(est)),
@@ -318,7 +321,7 @@ def _yang_extras(model, path, sites, tmp):
                                      "TDANetYang B=2")
     _expect(n == SITES["TDANetYang"] * CFG["num_blocks"],
             f"TDANetYang B=2: {n} launches")
-    db, cpu_s = _cpu64_snr(model, two, est)
+    db, cpu_s = cpu64_snr(model, two, est)
     print(f"TDANetYang B=2, the batch-axis attention across the rows: card "
           f"fp32 vs CPU float64 {db:.2f} dB (limit {LIMIT_DB:.0f}; the CPU "
           f"{cpu_s:.1f} s)")
@@ -341,7 +344,7 @@ def _yang_extras(model, path, sites, tmp):
     if new:
         check_sites(new, C, "TDANetYang graph")
         sites.checked |= new
-    dw, dw_ms, dev_ms, kernels = profile_graph(model, x)
+    dw, dw_ms, dev_ms, kernels, _ = profile_graph(model, x)
     want = PROFILED_REPLAYS * SITES["TDANetYang"] * CFG["num_blocks"]
     print(f"TDANetYang B=1 {SECONDS} s, {PROFILED_REPLAYS} CUDA-graph "
           f"replays profiled: {dw} dw_conv_glob_ln device kernels (expected "
@@ -389,15 +392,16 @@ def train_origin(tmp, tr, cv):
 
 def yang_gradients():
     """TDANetYang at the recipe's widths (8 kHz), B=2 1 s fp32: gradients
-    on the card against float64 on the CPU, #1's launches per step with
-    and without checkpointing (every site reaches the loss), and
-    dropout's masks under recomputation (``train_step.check_gradients``).
+    on the card against float64 on the CPU (at the card's kinks), #1's
+    launches per step with and without checkpointing (every site reaches
+    the loss), and dropout's masks under recomputation
+    (``train_step.check_gradients``).
     Returns the lowest SNR and the launches."""
     model = models.TDANetYang(**train_step.RECIPE)
     model.reset_parameters(torch.Generator().manual_seed(78))
     return train_step.check_gradients(
         model, SITES["TDANetYang"] * model.num_blocks, seed=5,
-        limit_db=GRAD_LIMIT_DB)
+        limit_db=GRAD_LIMIT_DB)[:2]
 
 
 def time_family(card):
@@ -415,7 +419,7 @@ def time_family(card):
                                   warmup=2)
         gms, gruns, _ = graph_time(lambda: model(wav), reps=1, runs=9)
     prof = dw_sites.profile_forward(model, wav)
-    dw, dw_ms, dev_ms, _ = profile_graph(model, wav, replays=1)
+    dw, dw_ms, dev_ms, _, _ = profile_graph(model, wav, replays=1)
     share = dw_ms / dev_ms if dev_ms > 0 else float("nan")
     print(f"TDANetYang forward B=1 {SECONDS} s fp32: eager median "
           f"{ems:.2f} ms (runs {[round(t, 2) for t in eruns]}), CUDA graph "

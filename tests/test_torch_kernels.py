@@ -191,9 +191,9 @@ def test_block_sites_are_the_model_calls(monkeypatch):
     from tdanet_tpu_torch.models import components
     seen = []
 
-    def spy(x, w, b, g, be, *, stride, K):
+    def spy(x, w, b, g, be, *, stride, K, eps):
         seen.append((x.shape[1], K, stride, b is not None))
-        return dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K)
+        return dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K, eps=eps)
     monkeypatch.setattr(components, "dw_conv_glob_ln", spy)
     model = TDANetBest(out_channels=8, in_channels=16, num_blocks=2,
                        upsampling_depth=5, enc_kernel_size=4)
@@ -209,7 +209,7 @@ THREADS = 512  # a CTA of the kernel
 
 def _chan(a, b):
     """The kernel's merge of Stats b (count, hi, lo, M2; mean hi + lo)
-    into a, in fp32, elementwise over tensors: a keeps its hi."""
+    into a, in fp64, elementwise over tensors: a keeps its hi."""
     (na, ha, la, qa), (nb, hb, lb, qb) = a, b
     n = na + nb
     r = 1.0 / torch.where(n > 0, n, torch.ones_like(n))
@@ -239,19 +239,20 @@ def _block_merge(parts):
 
 def _mirror_stats(y, p):
     """Each sample's (count, hi, lo, M2) of y (B, T_out, C) fp32 as the
-    kernel merges them: per tile one sum and one sum of squares of y - y0,
-    y0 the tile's first value; folded per (sample, CTA) in tile order; per
-    sample the CTAs' parts, one a thread in CTA order, a block merge."""
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
-    zero = (f32(0.0),) * 4
+    kernel merges them, in fp64: per tile one sum and one sum of squares
+    of y - y0, y0 the tile's first value; folded per (sample, CTA) in tile
+    order; per sample the CTAs' parts, one a thread in CTA order, a block
+    merge."""
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)  # noqa: E731
+    zero = (f64(0.0),) * 4
     partials = {}
     for j in range(p.grid):
         for i in cta_tiles(p, j):
             b, t0, c0 = tile_box(p, i)
-            v = y[b, t0:t0 + dw.TILE_T, c0:c0 + dw.TILE_C]
+            v = y[b, t0:t0 + dw.TILE_T, c0:c0 + dw.TILE_C].double()
             y0 = v[0, 0]
             s1, s2 = (v - y0).sum(), (v - y0).square().sum()
-            n = f32(float(v.numel()))
+            n = f64(float(v.numel()))
             lo = s1 / n
             partials[b, j] = _chan(partials.get((b, j), zero),
                                    (n, y0, lo, s2 - s1 * lo))
@@ -261,7 +262,8 @@ def _mirror_stats(y, p):
         js = list(range(tile_owner(p, first),
                         tile_owner(p, first + p.per_sample - 1) + 1))
         assert len(js) <= THREADS  # one part a thread
-        lanes = tuple(torch.zeros(THREADS) for _ in range(4))
+        lanes = tuple(torch.zeros(THREADS, dtype=torch.float64)
+                      for _ in range(4))
         for k, j in enumerate(js):
             for lane, part in zip(lanes, partials[b, j]):
                 lane[k] = part
@@ -273,24 +275,25 @@ def _mirror_stats(y, p):
     (1, 2010, 512, 528, 0.0), (1, 2010, 512, 528, 1e3),
     (1, 2010, 512, 100, 1e3), (2, 300, 96, 7, 1e3), (3, 126, 512, 40, 0.0)])
 def test_merge_mirror_matches_fp64_two_pass(B, T_out, C, capacity, offset):
-    """The kernel's merge order and forms, mirrored in fp32, give every
-    sample's mean and variance within 1e-6 relative of fp64 two-pass
-    statistics, also on activations with a large common offset, where
-    fp32 E[y^2] - E[y]^2 fails."""
+    """The kernel's merge order and forms, mirrored in fp64 as the kernel
+    computes them from fp32 conv values, give every sample's mean and
+    variance within 1e-12 relative of fp64 two-pass statistics, also on
+    activations with a large common offset, where fp32 E[y^2] - E[y]^2
+    fails."""
     rng = np.random.default_rng(T_out + C)
     y64 = offset + rng.standard_normal((B, T_out, C)) \
         * rng.uniform(0.5, 2.0, (B, 1, 1))
     y = torch.from_numpy(y64.astype(np.float32))
     p = dw.plan(B, T_out, C, capacity)
     for b, (n, hi, lo, m2) in enumerate(_mirror_stats(y, p)):
-        assert n.dtype == hi.dtype == lo.dtype == m2.dtype == torch.float32
+        assert n.dtype == hi.dtype == lo.dtype == m2.dtype == torch.float64
         ref = y[b].double()
         want_var = (ref - ref.mean()).square().mean().item()
         assert n.item() == T_out * C
         mean = hi.item() + lo.item()
-        assert abs(mean - ref.mean().item()) <= 1e-6 * abs(
-            ref.mean().item()) + 1e-6
-        assert abs(m2.item() / n.item() - want_var) <= 1e-6 * want_var
+        assert abs(mean - ref.mean().item()) <= 1e-12 * abs(
+            ref.mean().item()) + 1e-12
+        assert abs(m2.item() / n.item() - want_var) <= 1e-12 * want_var
         if offset:  # the one-pass form in fp32 is far off here
             yb = y[b]
             naive = (yb.square().mean() - yb.mean().square()).item()

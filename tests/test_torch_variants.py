@@ -215,8 +215,12 @@ REGISTRY_SPECIAL = {
 
 
 def test_available_models_lists_the_family_and_best():
-    assert tzoo.available_models() == sorted(
-        ["tdanetbest"] + [n.lower() for n in NAMES])
+    """TDANetBest and this family are registered, and the port's registry
+    is the JAX package's: all 34 separation models."""
+    import tdanet_tpu.models as jzoo
+    names = tzoo.available_models()
+    assert {"tdanetbest", *(n.lower() for n in NAMES)} <= set(names)
+    assert names == jzoo.available_models() and len(names) == 34
 
 
 @pytest.mark.parametrize("name", sorted(n.lower() for n in NAMES))
