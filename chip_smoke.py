@@ -120,9 +120,10 @@ exit code is not 0:
      every stream of its input's length, each run's #1 sites among those
      checked, #1's launches
      exactly 32 x the block iterations of the batches of 8 segments (stage
-     2's from the escalations stage 1's deltas predict), the plain run's
-     30 s recording against float64 stitching on the CPU (the same swap
-     decisions, >= 60 dB), the plain run against stitching of its segments
+     2's from the escalations stage 1's deltas predict), the first 4 of
+     the 10 segments of the plain run's 30 s recording against float64
+     stitching on the CPU (the same swap decisions, >= 60 dB; the other 6
+     cut for the time limit), the plain run against stitching of its segments
      separated again on the card (>= 100 dB) and the progressive run
      against stitching of its segments at full depth where escalated, else
      at depth 8 (>= 60 dB); the realtime factor printed.
@@ -158,9 +159,12 @@ exit code is not 0:
      against plain first (phase 3's limit), then ``separate`` on a 2 s
      clip through #1, its sites recorded and all checked, #1's launches
      exactly 17 x 16 a forward (13 x 16 for TDANetULayerNum), the output
-     against float64 on the CPU >= 60 dB; TDANetYang also at B=2 without
-     per_utterance, through the inference CLI, and in a profiled window
-     of graph replays (#1's device kernels 272 a replay);
+     against the card's plain path >= 60 dB, TDANetYang's and
+     TDANetOrigin's also against float64 on the CPU >= 60 dB (the other
+     nine classes' CPU forwards are cut for the time limit); TDANetYang
+     also at B=2 without per_utterance, through the inference CLI, and in
+     a profiled window of graph replays (#1's device kernels 272 a
+     replay);
   23. the family's training: audio_train on configs/tdanet_origin.yml
      (TDANetOrigin, B 8, 3 s, bf16, checkpointing) on phase 16's data, 2
      epochs and a resume, #1's forward and backward launches exact over
@@ -196,6 +200,33 @@ exit code is not 0:
      step (B 8, 3 s, bf16, checkpointing) timed with its peak memory and
      launches; every site the phase launched #1 at held against plain,
      forward and backward, at its channels and eps.
+  26. deployment bundles (probes/deploy_path.py), from #1's launch counts
+     at 0: five exports at once through the CLI (python -m
+     tdanet_tpu_torch.export_bundle, a subprocess each): phase 4's bench
+     model at 2.0 s, batch 8, early exit 8, the progressive pair at depth 8
+     and a 1 s x 4-stream streaming program, and again in bf16;
+     TDANetYang and TDANetEMCADv1_6 at configs/tdanet_origin.yml's widths
+     and 2 blocks; phase 16's model at every length of phase 18's corpus.
+     The bench bundle served in a fresh interpreter that must not import
+     tdanet_tpu_torch.models (probes/deploy_serve.py): 8 utterances of 2 s
+     against separate_batched on the model (>= 60 dB) and the first
+     against CPU float64 (>= 60 dB); E8 against separate_batched at depth
+     8, the progressive pair at thresholds 0, inf and the median delta
+     against separate_progressive (and its census), load_streaming on 4
+     streams against the model's MultiStreamSeparator (>= 60 dB, each of
+     its input's length); #1 inside every program: op nodes exactly 512
+     (T, S) and 256 (E8, each stage), wrapper launches 2 x the nodes at
+     each set-up (a forward and a capture) and none in replays, and the
+     profiler's #1 device kernels per replay exactly the nodes; the bf16
+     bundle against separate_batched(compute_dtype=bf16), both on cuDNN's
+     deterministic algorithms (>= 120 dB; the default algorithms' run-to-
+     run spread and bf16 against fp32 printed beside it), and the two
+     family bundles against their models' separate (>= 60 dB; 512, 34 and
+     44 nodes); audio_test --bundle on phase 18's corpus, every metric
+     within 0.01 dB of the model-code stream; times: the bundle's B=8
+     2 s replay beside the model's, its load-to-first-result seconds, and
+     the eager B=1 2 s forward with #1 through the registered op and
+     called directly, in turns.
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
 the result line.
@@ -227,8 +258,9 @@ from tdanet_tpu_torch.models import (
     BaseModel, SwinTransformer, SwinTransformerSys, TDANetBest)
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
-    dw_backward, dw_sites, era, eval_path, hybrid, mosaic_ops, mosaic_ops2,
-    serve_path, train_step, uconv_halves, uconv_kernel, variants)
+    deploy_path, dw_backward, dw_sites, era, eval_path, hybrid, mosaic_ops,
+    mosaic_ops2, serve_path, train_step, uconv_halves, uconv_kernel,
+    variants)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.probes.train_step import tone_mix
 from tdanet_tpu_torch.utils import separate, separate_batched
@@ -1125,11 +1157,18 @@ def main():
             card, tmp, data=(os.path.join(tmp, "tr"),
                              os.path.join(tmp, "cv")))
         torch.cuda.synchronize()
+        phase("26 deployment bundles (launch counts from 0)")
+        path = os.path.join(tmp, "bench.pth")
+        torch.save(checkpoint, path)
+        deployed, deploy_launches = deploy_path.drive_deploy(
+            card, tmp, path, os.path.join(tmp, "eval_conf.yml"))
+        torch.cuda.synchronize()
     print(json.dumps({"eval": evaluated, "css": css}))
     print(json.dumps({"serve": serve, "serve_times": serve_times}))
     print(json.dumps({"variants": family, "variant_training":
                       family_training}))
     print(json.dumps({"era": era_family, "era_training": era_training}))
+    print(json.dumps({"deploy": deployed}))
     kernels[0]["train_launches"] = train_launches[0]
     kernels[0]["eval_launches"] = evaluated["eval_launches"]
     kernels[0]["css_launches"] = css["css_launches"]
@@ -1151,6 +1190,15 @@ def main():
     # audio_train run of TDANetEMCADv1_6
     kernels[0]["era_launches"] = era_launches
     kernels[0]["era_train_launches"] = list(era_train)
+    # phase 26: #1's op nodes in each loaded program; the wrapper's
+    # launches on the bundle paths (each program's set-up forward and
+    # capture; replays pass no wrapper); the profiler's #1 device kernels
+    # per replay of each bench program
+    kernels[0]["deploy_nodes"] = {
+        **deployed["bench"]["nodes"], "bf16": deployed["bf16"]["nodes"],
+        **{k: v["nodes"] for k, v in deployed["family"].items()}}
+    kernels[0]["deploy_launches"] = deploy_launches
+    kernels[0]["deploy_profiled_dw_kernels"] = deployed["bench"]["profiled"]
     kernels.append(backward_entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,15 @@ std rows, and optionally the separated wavs.
     python -m tdanet_tpu_torch.audio_test --conf_dir <exp>/conf.yml \\
         [--ckpt_path path.pth] [--save_output true] [--save_path dir] \\
         [--batch_size 8] [--num_blocks D | --progressive_depth D1 \\
-        [--progressive_threshold 0.05]] [--device cuda|cpu]
+        [--progressive_threshold 0.05] | --bundle dir] [--device cuda|cpu]
 
 The experiment directory is ``main_args.exp_dir`` of the conf when the
 trainer wrote one, else Experiments/checkpoint/<exp_name>; the checkpoint
-defaults to its best_model.pth. The device is CUDA unless ``--device cpu``
-asks for the CPU; without a card it raises. The exit code is 1 when the
-result is empty or not finite.
+defaults to its best_model.pth. ``--bundle`` evaluates through a
+deployment bundle (``python -m tdanet_tpu_torch.export_bundle``) in place
+of the checkpoint and the model code. The device is CUDA unless
+``--device cpu`` asks for the CPU; without a card it raises. The exit code
+is 1 when the result is empty or not finite.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ import torch
 
 from tdanet_tpu_torch import datas as data_zoo
 from tdanet_tpu_torch.metrics import MetricsTracker
-from tdanet_tpu_torch.models import BaseModel
 from tdanet_tpu_torch.utils import separate, write_wav
 from tdanet_tpu_torch.utils.parser import load_yaml
 
@@ -48,6 +49,7 @@ def resolve_device(name):
 
 def load_model(conf, ckpt, device):
     """The conf's model from ``ckpt``, on ``device``, in eval mode."""
+    from tdanet_tpu_torch.models import BaseModel
     sr = conf["datamodule"]["data_config"]["sample_rate"]
     model = BaseModel.from_pretrain(
         conf["audionet"]["audionet_name"], ckpt, sample_rate=sr,
@@ -78,7 +80,11 @@ def build_parser():
                         "JAX CLI; above 1 needs a mesh, not ported yet "
                         "(ROADMAP A #10)")
     p.add_argument("--bundle", default=None,
-                   help="not ported yet (deploy.py)")
+                   help="evaluate through a deployment bundle "
+                        "(python -m tdanet_tpu_torch.export_bundle) instead "
+                        "of the model code: the shipped artifact's metrics; "
+                        "the bundle must export every test-set length "
+                        "(--lengths_from_manifest at export)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return p
 
@@ -86,10 +92,13 @@ def build_parser():
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    if args.bundle is not None:
-        p.error("--bundle is not ported yet: deploy.py and "
-                "scripts/export_bundle.py have no counterpart in "
-                "tdanet_tpu_torch")
+    if args.bundle is not None and (
+            args.num_blocks is not None
+            or args.progressive_depth is not None
+            or (args.dp or 0) > 1):
+        p.error("--bundle serves fixed exported programs; "
+                "--num_blocks/--progressive_depth/--dp do not apply "
+                "(choose depth and dtype at export)")
     if args.dp is not None and args.dp > 1:
         p.error("--dp above 1 is not ported yet: parallel/mesh.py has no "
                 "counterpart in tdanet_tpu_torch (ROADMAP A #10)")
@@ -102,7 +111,18 @@ def main(argv=None):
     exp_dir = experiment_dir(conf)
     ckpt = args.ckpt_path or os.path.join(exp_dir, "best_model.pth")
     sr = conf["datamodule"]["data_config"]["sample_rate"]
-    model = load_model(conf, ckpt, device)
+    if args.bundle is not None:
+        # no model code and no checkpoint: the bundle carries programs and
+        # weights (tdanet_tpu_torch/deploy.py)
+        from tdanet_tpu_torch import deploy
+        dep = deploy.load_bundle(args.bundle, device=device)
+        if dep.sample_rate != sr:
+            raise SystemExit(
+                f"bundle was exported at {dep.sample_rate} Hz but the "
+                f"config's test set is {sr} Hz")
+        model = None
+    else:
+        model = load_model(conf, ckpt, device)
 
     dm = getattr(data_zoo, conf["datamodule"]["data_name"])(
         **{**conf["datamodule"]["data_config"], "segment": None})
@@ -129,7 +149,17 @@ def main(argv=None):
 
     lengths = [test_set.mix[i][1] for i in range(len(test_set))]
     with progress:
-        if args.progressive_depth is not None:
+        if args.bundle is not None:
+            B = dep.batch_size
+            done = 0
+            for s0 in progress.track(range(0, len(test_set), B)):
+                items = [test_set[i]
+                         for i in range(s0, min(len(test_set), s0 + B))]
+                ests = dep.separate_batched([it[0] for it in items])
+                for item, est in zip(items, ests):
+                    emit(done, *item, est)
+                    done += 1
+        elif args.progressive_depth is not None:
             from tdanet_tpu_torch.progressive import \
                 separate_progressive_stream
             pstats = {}

@@ -37,13 +37,18 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    """The library's path, named by a hash of the source and of every
-    header in ``csrc/`` it may include."""
+def source_hash(name: str) -> str:
+    """A hash of ``csrc/<name>.cu`` and of every header in ``csrc/`` it
+    may include: what names its library."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """The library's path, named by :func:`source_hash`."""
+    return BUILD_DIR / f"lib{name}-{source_hash(name)}.so"
 
 
 def build(name: str) -> tuple[Path, float, str]:

@@ -17,6 +17,14 @@ trainer differentiates the plain ConvNorm, which
 On a CUDA tensor a wrapper launches its kernel or raises. On a CPU tensor,
 and only there, it computes the plain version,
 :func:`dw_conv_glob_ln_reference` (autograd differentiates it).
+
+The forward without a gradient is the registered op
+``torch.ops.tdanet_tpu_torch.dw_conv_glob_ln`` (:data:`OP`): its CUDA
+implementation is the kernel's launch, its CPU implementation the plain
+version, and its fake implementation gives the kernel's output layout, so
+``torch.export`` keeps one node a site and an exported program launches
+the kernel when it runs on the card (``tdanet_tpu_torch/deploy.py``).
+Outside a trace the wrapper calls the implementation directly.
 """
 
 from __future__ import annotations
@@ -393,13 +401,61 @@ class DwConvGlobLnFunction(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-def _dispatch(x, weight, bias, gamma, beta, stride, K, eps):
-    if torch.is_grad_enabled() and any(
-            p is not None and p.requires_grad
-            for p in (x, weight, bias, gamma, beta)):
-        return DwConvGlobLnFunction.apply(x, weight, bias, gamma, beta,
-                                          stride, K, eps)
+# The forward as the registered op ``tdanet_tpu_torch::dw_conv_glob_ln``, so
+# that a tracer (torch.export) records one node a site and an exported
+# program calls the kernel again when it runs. Registered through
+# ``torch.library.Library`` with a Python kernel a device: the dispatcher's
+# lowest-cost route for a Python implementation.
+_LIB = torch.library.Library("tdanet_tpu_torch", "DEF")
+_LIB.define("dw_conv_glob_ln(Tensor x, Tensor weight, Tensor? bias, "
+            "Tensor gamma, Tensor beta, int stride, int K, float eps) "
+            "-> Tensor")
+
+
+def _op_cuda(x, weight, bias, gamma, beta, stride, K, eps):
+    """The op on the card: one launch of the forward kernel on x's
+    device (the parameters' casts, the checks and the occupancy query run
+    here, on real tensors)."""
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):  # a launch goes to this device
+            return _launch(x, weight, bias, gamma, beta, stride, K, eps)[0]
     return _launch(x, weight, bias, gamma, beta, stride, K, eps)[0]
+
+
+def _op_cpu(x, weight, bias, gamma, beta, stride, K, eps):
+    """The op on the CPU: the plain version, in the kernel's output
+    layout."""
+    ref = dw_conv_glob_ln_reference(x, weight, bias, gamma, beta,
+                                    stride=stride, K=K, eps=eps)
+    out = _like(x, ref.shape[1])
+    if ref.stride() == out.stride():
+        return ref
+    return out.copy_(ref)
+
+
+def _op_fake(x, weight, bias, gamma, beta, stride, K, eps):
+    """The op's output without data: the shape, dtype and strides the
+    kernel gives (:func:`_like`)."""
+    return _like(x, _out_len(x.shape[1], K, stride))
+
+
+_LIB.impl("dw_conv_glob_ln", _op_cuda, "CUDA")
+_LIB.impl("dw_conv_glob_ln", _op_cpu, "CPU")
+torch.library.register_fake("tdanet_tpu_torch::dw_conv_glob_ln", _op_fake,
+                            lib=_LIB)
+OP = torch.ops.tdanet_tpu_torch.dw_conv_glob_ln.default
+
+
+# the op's implementations by device: what the no-grad path runs outside
+# a trace, where the dispatcher's Python kernel would add its own host
+# cost to every call (5-18 us a call on the H100's host, up to 9 ms an
+# eager forward of 512 sites; chip_smoke.py phase 26)
+_IMPL = {"cpu": _op_cpu, "cuda": _op_cuda}
+
+
+def _wants_grad(*ps):
+    return torch.is_grad_enabled() and any(
+        p is not None and p.requires_grad for p in ps)
 
 
 def dw_conv_glob_ln(x, weight, bias, gamma, beta, *, stride=1, K=5,
@@ -410,18 +466,28 @@ def dw_conv_glob_ln(x, weight, bias, gamma, beta, *, stride=1, K=5,
 
     One of T and C must be x's innermost contiguous axis; the output has
     x's layout. Where autograd wants a gradient of any operand, the call
-    goes through :class:`DwConvGlobLnFunction` (the backward kernel).
+    goes through :class:`DwConvGlobLnFunction` (the backward kernel) on
+    the card and the plain version on the CPU; elsewhere it runs the
+    registered op :data:`OP`: under a trace (``torch.export``) the op
+    itself, which the program keeps as one node, and eagerly the op's
+    implementation for x's device, without the dispatcher's cost.
     ``launches`` counts the forward kernel's launches."""
     _check(x, weight, bias, gamma, beta, stride, K)
-    if x.device.type == "cpu":
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no dw_conv_glob_ln for device {x.device}")
+    if not _wants_grad(x, weight, bias, gamma, beta):
+        if torch.compiler.is_compiling():  # torch.export: one node a site
+            return OP(x, weight, bias, gamma, beta, stride, K, eps)
+        return _IMPL[x.device.type](x, weight, bias, gamma, beta, stride, K,
+                                    eps)
+    if x.device.type == "cpu":  # autograd differentiates the plain version
         return dw_conv_glob_ln_reference(x, weight, bias, gamma, beta,
                                          stride=stride, K=K, eps=eps)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no dw_conv_glob_ln for device {x.device}")
+    args = (x, weight, bias, gamma, beta, stride, K, eps)
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):  # a launch goes to this device
-            return _dispatch(x, weight, bias, gamma, beta, stride, K, eps)
-    return _dispatch(x, weight, bias, gamma, beta, stride, K, eps)
+            return DwConvGlobLnFunction.apply(*args)
+    return DwConvGlobLnFunction.apply(*args)
 
 
 dw_conv_glob_ln.launches = 0

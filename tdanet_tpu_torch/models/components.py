@@ -21,6 +21,9 @@ drop-path on both GA sublayers. At inference they are the identity.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -29,6 +32,33 @@ from torch import nn
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (dw_conv_glob_ln,
                                                       supports)
 from tdanet_tpu_torch.ops import basic as ops
+
+
+def _untraced():
+    """A context in which new tensors are real tensors, also inside
+    ``torch.export``'s tracing (no fake tensors, nothing recorded)."""
+    stack = contextlib.ExitStack()
+    if torch.compiler.is_exporting():
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        from torch.fx.experimental.proxy_tensor import \
+            disable_proxy_modes_tracing
+        stack.enter_context(unset_fake_temporarily())
+        stack.enter_context(disable_proxy_modes_tracing())
+    return stack
+
+
+@functools.cache
+def _pe_table(T, C, dtype, device):
+    """The attention's (T, C) sinusoidal table, one per length, width,
+    dtype and device, never written and never freed: a captured CUDA
+    graph reads the table its capture saw and holds no reference to it,
+    so the table must outlive every graph (an evicted one would be
+    reused memory that a replay reads as its table). It is a real tensor
+    even when ``torch.export`` traces the first call (:func:`_untraced`):
+    a program keeps it as one constant on its device, with no host copy
+    when it runs, and no module holds a tensor made during a trace."""
+    with _untraced():
+        return ops.sinusoidal_pe(T, C, dtype, device)
 
 
 class GlobLN(nn.Module):
@@ -235,7 +265,6 @@ class MultiHeadAttentionModule(nn.Module):
         # parameter holder only: its forward is not the reference's math
         self.attn = nn.MultiheadAttention(channels, n_head)
         self.norm = nn.LayerNorm(channels)
-        self._pe = {}
 
     @property
     def fixed(self):
@@ -243,10 +272,7 @@ class MultiHeadAttentionModule(nn.Module):
         return self.batch_first and not self.self_residual
 
     def _pos_enc(self, T, C, like):
-        key = (T, C, like.device, like.dtype)
-        if key not in self._pe:
-            self._pe[key] = ops.sinusoidal_pe(T, C, like.dtype, like.device)
-        return self._pe[key]
+        return _pe_table(T, C, like.dtype, like.device)
 
     def forward(self, x, per_utterance=False, training=False,
                 generator=None):

@@ -121,17 +121,20 @@ class TDANetBest(BaseModel):
         return K - (K // 4 + T % K) % K
 
     @torch.inference_mode()
-    def forward_stage1(self, wav, depth, per_utterance=False):
+    def forward_stage1(self, wav, depth, per_utterance=False,
+                       compute_dtype=None):
         """Progressive separation, stage 1 (inference only): the
         depth-``depth`` forward and the state to continue it. Returns
-        ``(est, state)``: ``est`` equals ``forward(wav, num_blocks=depth)``;
-        ``state`` holds the bottleneck mixture features, the recurrence's
-        carry, the encoder features, ``delta`` (each example's relative
-        change in the last iteration, the escalation proxy), all with the
-        batch first, and the ``depth`` reached."""
+        ``(est, state)``: ``est`` equals ``forward(wav, num_blocks=depth,
+        compute_dtype=compute_dtype)``; ``state`` holds the bottleneck
+        mixture features, the recurrence's carry, the encoder features,
+        ``delta`` (each example's relative change in the last iteration,
+        the escalation proxy), all with the batch first and in the
+        activations' dtype, and the ``depth`` reached. Stage 2 continues
+        in the state's dtype."""
         if wav.ndim == 3:
             wav = wav.squeeze(1)
-        wav = wav.to(self.encoder.weight.dtype)
+        wav = wav.to(compute_dtype or self.encoder.weight.dtype)
         feats, s, rest = self._front(wav)
         x, delta = self.sm.forward_with_state(feats, n_iter=depth,
                                               per_utterance=per_utterance)

@@ -11,6 +11,10 @@ slice's ``serve_path`` (the engines checked and timed on the card),
 ``bench_streaming`` and ``bench_async_server`` (counterparts of
 ``scripts/bench_streaming.py`` and ``scripts/bench_async_server.py``),
 the variant family's ``variants`` (the eleven models, their training
-and times on the card), and the EMCAD-era family's ``era`` (its 22
-models, the flagship's training and times). Run each as
+and times on the card), the EMCAD-era family's ``era`` (its 22
+models, the flagship's training and times), and the deployment slice's
+``deploy_path`` (bundles exported, served and held against their models;
+its serving half ``deploy_serve`` runs in a fresh interpreter;
+``export_parity`` finds the first op where an exported program and its
+model part). Run each as
 ``python -m tdanet_tpu_torch.probes.<name> [options]``."""

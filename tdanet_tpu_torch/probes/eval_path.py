@@ -15,10 +15,11 @@ the model's stride lattice (1024 samples at 8 kHz): 11 of about 2.5 s, 8 of
 4 s and 5 of 6 s, each of its own length. At a batch of 8 that is three
 buckets and four batches, a full one of 8 and ragged ones of 3 and 5.
 Phase 19: two recordings of about 30 s and 47 s, 4 s segments, overlap
-0.25; the first is held against float64 stitching on the CPU (the
-full-width model in float64 is slow there: one recording keeps the phase
-short), both against stitching of their segments separated again on the
-card at fixed depths.
+0.25; the first recording's first 4 segments are held against float64
+stitching on the CPU (the full-width model in float64 is slow there: a
+part of one recording keeps the phase short), both recordings against
+stitching of their segments separated again on the card at fixed
+depths.
 
 Before its CLI runs, each phase holds #1 against its plain version at
 every depthwise site a forward of its lengths runs, at every row count a
@@ -66,6 +67,10 @@ MAX_SECONDS = 6.0
 BATCH = 8
 DEPTH1 = 8
 CSS_SECONDS = (30.0, 47.0)
+# the segments of the first recording held against float64 on the CPU
+# (about 6 s of the CPU a segment at full width; the first 4 of its 10
+# keep phase 19 within chip_smoke.py's time limit)
+CPU64_SEGMENTS = 4
 SEGMENT, OVERLAP = 4.0, 0.25
 RECIPE = dict(out_channels=128, in_channels=512, num_blocks=16,
               upsampling_depth=5, enc_kernel_size=4, num_sources=2,
@@ -335,6 +340,22 @@ def _min_snr(ref, est, keys):
                for k in keys)
 
 
+def eval_corpus(conf_path, lattice, tmp):
+    """Phase 18's corpus, written to ``tmp/eval_corpus``, and a copy of
+    the conf whose splits all read it, ``tmp/eval_conf.yml``. Returns
+    (that conf's path, the corpus directory, the lengths)."""
+    conf = load_yaml(conf_path)
+    corpus = os.path.join(tmp, "eval_corpus")
+    lengths = corpus_lengths(lattice, seed=18)
+    write_corpus(corpus, lengths, seed=18)
+    # setup() reads every split's manifest; the eval reads the test split
+    conf["datamodule"]["data_config"].update(
+        train_dir=corpus, valid_dir=corpus, test_dir=corpus)
+    eval_conf = os.path.join(tmp, "eval_conf.yml")
+    save_yaml(eval_conf, conf)
+    return eval_conf, corpus, lengths
+
+
 def drive_eval(card, conf_path, tmp):
     """Phase 18 on the experiment of ``conf_path`` (its best_model.pth).
     Returns the phase's record: #1's launches in its counted runs, the
@@ -345,15 +366,8 @@ def drive_eval(card, conf_path, tmp):
     model = BaseModel.from_pretrain(ckpt).cuda()
     lattice, depth = model.lcm, model.num_blocks
     per_iter = sites_per_block(model)
-    corpus = os.path.join(tmp, "eval_corpus")
-    lengths = corpus_lengths(lattice, seed=18)
-    write_corpus(corpus, lengths, seed=18)
+    eval_conf, corpus, lengths = eval_corpus(conf_path, lattice, tmp)
     n, audio_s = len(lengths), sum(lengths) / SR
-    # setup() reads every split's manifest; the eval reads the test split
-    conf["datamodule"]["data_config"].update(
-        train_dir=corpus, valid_dir=corpus, test_dir=corpus)
-    eval_conf = os.path.join(tmp, "eval_conf.yml")
-    save_yaml(eval_conf, conf)
     plan = plan_lattice_buckets(lengths, lattice, BATCH)
     groups = plan_lattice_buckets(lengths, lattice, 4 * BATCH)
     print(f"corpus: {n} utterances, {audio_s:.1f} s of audio, lengths "
@@ -631,18 +645,21 @@ def drive_css(card, conf_path, tmp):
                 mine[:, :mine.shape[-1] - pad],
                 runs[tag]["streams"][name].astype(np.float64)))
         if swaps_same is None:
+            # stitching is causal: the first CPU64_SEGMENTS segments give
+            # the stream's first samples
+            head = segs[:CPU64_SEGMENTS]
             t0 = time.perf_counter()
-            ref = separate_segments(cpu64, segs)
+            ref = separate_segments(cpu64, head)
             cpu_s = time.perf_counter() - t0
-            swaps_same = chain_swaps(on_card, overlap_len) == chain_swaps(
-                ref, overlap_len)
+            swaps_same = chain_swaps(on_card[:len(head)], overlap_len) \
+                == chain_swaps(ref, overlap_len)
             want = stitch_chain(ref, overlap_len)
-            low = _snr_rows(want[:, :want.shape[-1] - pad],
-                            runs["css"]["streams"][name].astype(np.float64))
+            low = _snr_rows(want, runs["css"]["streams"][name][
+                :, :want.shape[-1]].astype(np.float64))
             print(f"  {name}: the CSS CLI's streams vs float64 stitching on "
-                  f"the CPU ({len(segs)} segments, {cpu_s:.1f} s): the same "
-                  f"{len(segs) - 1} swap decisions {swaps_same}, lowest "
-                  f"SNR {low:.2f} dB (limit 60)")
+                  f"the CPU (the first {len(head)} of {len(segs)} segments, "
+                  f"{cpu_s:.1f} s): the same {len(head) - 1} swap decisions "
+                  f"{swaps_same}, lowest SNR {low:.2f} dB (limit 60)")
     del cpu64
     print(f"  every recording's streams vs the stitching of its segments "
           f"separated again on the card, lowest SNR: plain "

@@ -67,6 +67,7 @@ from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
     dw_conv_glob_ln, dw_conv_glob_ln_reference)
 from tdanet_tpu_torch.probes import bench_async_server as bench
 from tdanet_tpu_torch.probes.bench_streaming import hop_latency
+from tdanet_tpu_torch.probes.deploy_serve import RAGGED, drive_streams
 from tdanet_tpu_torch.probes.dw_sites import block_sites
 from tdanet_tpu_torch.probes.eval_path import (
     check_sites, expect_checked, recorded_sites, sites_per_block)
@@ -75,7 +76,8 @@ from tdanet_tpu_torch.serving import (
     StreamingSeparator, pcm16)
 from tdanet_tpu_torch.utils import separate_batched
 from tdanet_tpu_torch.utils.css import stitch_segments
-from tdanet_tpu_torch.utils.timing import card_line, snr_db
+from tdanet_tpu_torch.utils.timing import (card_line, profile_window,
+                                          snr_db)
 
 SR = 16000
 CFG = dict(out_channels=128, in_channels=512, num_blocks=16,
@@ -88,7 +90,6 @@ BUCKET = 16384  # the buckets: multiples of 16 lattice cells (1.024 s)
 BUCKETS = (BUCKET, 2 * BUCKET, 3 * BUCKET, 4 * BUCKET)
 LADDER = dict(max_batch=24, min_batch=8)  # 8, 16, 24
 CLIENTS, REQUESTS = 8, 48
-RAGGED = (5000, 17000, 3100, 26000, 900, 40000)
 BF16 = "torch.bfloat16"
 
 
@@ -197,26 +198,6 @@ def _push_ragged(engine, wav):
     return np.concatenate(outs, axis=1)
 
 
-def _drive_multi(multi, wavs):
-    """Interleaved ragged pushes with steps, then a flush of each."""
-    got = {i: [] for i in range(len(wavs))}
-    pos = [0] * len(wavs)
-    for i in range(len(wavs)):
-        multi.open(i)
-    k = 0
-    while any(p < len(w) for p, w in zip(pos, wavs)):
-        for i, w in enumerate(wavs):
-            chunk = w[pos[i]:pos[i] + RAGGED[(k + i) % len(RAGGED)]]
-            pos[i] += len(chunk)
-            if len(chunk):
-                multi.push(i, chunk)
-        k += 1
-        for sid, o in multi.step().items():
-            got[sid].append(o)
-    return [np.concatenate(got[i] + [multi.flush(i)], axis=1)
-            for i in range(len(wavs))]
-
-
 def _recording(multi):
     """Wrap an engine's batched forward to keep each (batch, estimates)."""
     seen, dispatch = [], multi._dispatch
@@ -249,25 +230,6 @@ def _wait_builds(server, timeout=120):
         _expect(time.perf_counter() - t0 < timeout,
                 "background rung builds did not finish")
         time.sleep(0.05)
-
-
-def profile_window(fn):
-    """Run ``fn`` under the profiler: (its return, #1's device kernels,
-    all device events' count and ms, the wall ms)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ret = fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CUDA]
-    dw = sum(e.count for e in events if "dw_conv_glob_ln" in e.key)
-    return (ret, dw, sum(e.count for e in events),
-            sum(e.self_device_time_total for e in events) / 1e3, wall)
 
 
 def drive_serve(model, seed=20):
@@ -312,7 +274,7 @@ def drive_serve(model, seed=20):
 
         multi = MultiStreamSeparator(model, max_streams=4, segment=SEGMENT,
                                      overlap=OVERLAP, sample_rate=SR)
-        multi_out = _drive_multi(multi, multi_wavs)
+        multi_out = drive_streams(multi, multi_wavs)
         singles = [_push_ragged(stream, w) for w in multi_wavs]
         record["multi_vs_single_db"] = min(
             _snr(s, m) for s, m in zip(singles, multi_out))
@@ -328,7 +290,7 @@ def drive_serve(model, seed=20):
                                    compute_dtype=torch.bfloat16,
                                    emit_dtype="int16")
         batches = _recording(m16)
-        pcm = _drive_multi(m16, multi_wavs)
+        pcm = drive_streams(m16, multi_wavs)
         _expect(all(p.dtype == np.int16 for p in pcm), "int16 emission")
         for engine in (stream, multi, m16):
             graphs += engine.stats["graphs"]

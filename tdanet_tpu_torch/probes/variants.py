@@ -14,8 +14,12 @@ every site not yet held against plain is checked (phase 3's limit); then
 ``separate`` on a 2 s clip runs the kernel, its sites recorded and all
 among those checked, #1's launches exactly 17 x 16 a forward (13 x 16 for
 TDANetULayerNum, whose K33 stride-16 pyramid convs are outside #1's
-range); the output against the same model in float64 on the CPU, >= 60
-dB. TDANetYang also runs two rows without ``per_utterance`` (the
+range); the output against the same model on the card with #1's plain
+version, and, for TDANetYang and TDANetOrigin (``CPU64``), against the same
+model in float64 on the CPU, each >= 60 dB (the other nine classes' CPU
+float64 forwards, about 7 s each, were cut for the time limit of
+``chip_smoke.py``; their float64 parity is held on the CPU against the JAX
+package by ``tests/test_torch_variants.py``). TDANetYang also runs two rows without ``per_utterance`` (the
 batch-axis attention across them) against float64, the inference CLI on
 its ``.pth``, and one profiled window of CUDA-graph replays whose #1
 device kernels must be 272 a replay.
@@ -86,6 +90,9 @@ FAMILY = {
 # #1's sites a block iteration at depth 5: 5 pyramid convs + 4 expansion
 # LAs x 3; TDANetULayerNum's pyramid convs 1-4 (K33 s16) are outside #1
 SITES = {name: 13 if name == "TDANetULayerNum" else 17 for name in FAMILY}
+# the classes held against float64 on the CPU in phase 22: the reference's
+# default model and the config the family trains
+CPU64 = ("TDANetYang", "TDANetOrigin")
 SECONDS = 2.0
 TRAIN_CONF = "configs/tdanet_origin.yml"
 TRAIN_UTTERANCES, VALID_UTTERANCES = 16, 8
@@ -291,17 +298,21 @@ def drive_family(tmp):
                              f"expected {want_n}")
         _expect(est.shape == (2, wav.shape[-1]) and np.isfinite(est).all(),
                 f"{name}: bad output {est.shape}")
-        db, cpu_s = cpu64_snr(model, wav, est)
-        row = dict(launches=n, sites=SITES[name], vs_cpu64_db=db,
+        row = dict(launches=n, sites=SITES[name],
                    vs_plain_on_card_db=snr_db(torch.from_numpy(plain),
-                                              torch.from_numpy(est)),
-                   cpu64_s=cpu_s)
+                                              torch.from_numpy(est)))
+        against = f"vs the plain path on the card " \
+            f"{row['vs_plain_on_card_db']:.2f} dB"
+        if name in CPU64:
+            row["vs_cpu64_db"], row["cpu64_s"] = cpu64_snr(model, wav, est)
+            against = (f"card fp32 vs CPU float64 {row['vs_cpu64_db']:.2f} "
+                       f"dB (the CPU {row['cpu64_s']:.1f} s); {against}")
         print(f"{name}: {n} #1 launches ({SITES[name]} x "
-              f"{CFG['num_blocks']}); card fp32 vs CPU float64 {db:.2f} dB "
-              f"(limit {LIMIT_DB:.0f}; the CPU {cpu_s:.1f} s); vs the plain "
-              f"path on the card {row['vs_plain_on_card_db']:.2f} dB; "
+              f"{CFG['num_blocks']}); {against} (limit {LIMIT_DB:.0f}); "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        _expect(db >= LIMIT_DB, f"{name} disagrees with float64: {db:.2f}")
+        for key in ("vs_plain_on_card_db", "vs_cpu64_db"):
+            _expect(row.get(key, LIMIT_DB) >= LIMIT_DB,
+                    f"{name} {key} {row.get(key)}")
         rec[name] = row
         if name == "TDANetYang":
             rec["TDANetYang_B2"] = _yang_extras(model, path, sites, tmp)

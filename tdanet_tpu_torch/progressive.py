@@ -63,14 +63,35 @@ def separate_progressive(model, mixes, depth1=8, depth_full=None,
         raise ValueError(f"depth_full ({depth_full}) must exceed "
                          f"depth1 ({depth1})")
     rest = model.pad_rest(T)
-    device = next(model.parameters()).device
-    ests = np.zeros((0, model.num_sources, T), np.float32)
+    return progressive_loop(
+        lambda xb: model.forward_stage1(xb, depth1, per_utterance=True),
+        lambda st: model.forward_stage2(st, n_more, rest,
+                                        per_utterance=True),
+        mixes, batch_size, threshold, next(model.parameters()).device,
+        depth1=depth1, depth_full=depth_full)
+
+
+def progressive_loop(stage1, stage2, mixes, batch_size, threshold, device,
+                     *, depth1, depth_full):
+    """The host orchestration shared by :func:`separate_progressive` and
+    a deployment bundle's stage pair (``deploy.load_progressive``): the
+    stage-1 sweep in batches of ``batch_size`` rows (the last may be
+    shorter), the threshold census, the gather of the escalated rows on
+    ``device`` (``index_select`` on the concatenated state) and stage 2 on
+    them. ``stage1`` maps a (rows, T) float32 tensor on ``device`` to
+    ``(est, state)``, ``state`` a dict whose tensors have the batch first
+    and which holds ``delta``; ``stage2`` maps such a state of the
+    escalated rows to their estimates. Returns ``(ests, info)`` as
+    :func:`separate_progressive` does."""
+    mixes = np.asarray(mixes, np.float32)
+    N = mixes.shape[0]
+    ests = np.zeros((0,), np.float32)
     deltas = np.zeros(0, np.float32)
     with torch.inference_mode():
         states = []
         for s0 in range(0, N, batch_size):
             xb = torch.from_numpy(mixes[s0:s0 + batch_size]).to(device)
-            est, st = model.forward_stage1(xb, depth1, per_utterance=True)
+            est, st = stage1(xb)
             est, delta = to_numpy(est), to_numpy(st["delta"])
             if s0 == 0:
                 ests = np.zeros((N, *est.shape[1:]), est.dtype)
@@ -95,8 +116,7 @@ def separate_progressive(model, mixes, depth1=8, depth_full=None,
                 idx = torch.from_numpy(chunk).to(device)
                 st = {k: (v.index_select(0, idx) if torch.is_tensor(v)
                           else v) for k, v in cat.items()}
-                ests[chunk] = to_numpy(model.forward_stage2(
-                    st, n_more, rest, per_utterance=True))
+                ests[chunk] = to_numpy(stage2(st))
     return ests, {"delta": deltas, "escalated": escalated,
                   "depth1": depth1, "depth_full": depth_full,
                   "n_escalated": int(escalated.sum())}

@@ -217,20 +217,10 @@ class Program:
         self._unmade = slots
         if device.type != "cuda":
             return
-        caller = torch.cuda.current_stream(device)
-        stream = stream or capture_stream(device)
-        with _CAPTURE_LOCK:
-            stream.wait_stream(caller)
-            with torch.inference_mode(), torch.cuda.stream(stream):
-                self.x = torch.zeros((rows, length), dtype=torch.float32,
-                                     device=device)
-                fn(self.x)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    self.out = fn(self.x)
-            caller.wait_stream(stream)
-        self.graph = graph
+        self.graph, (self.x,), self.out = capture(
+            fn, lambda: (torch.zeros((rows, length), dtype=torch.float32,
+                                     device=device),),
+            device, pool, stream)
 
     def _slot(self) -> _Slot:
         try:
@@ -290,6 +280,28 @@ class Program:
     def stats(self):
         """Forwards replayed from the graph, and the graphs (0 or 1)."""
         return {"replays": self.replays, "graphs": int(self.graph is not None)}
+
+
+def capture(fn, make_inputs, device, pool=None, stream=None):
+    """``fn`` on the static inputs that ``make_inputs()`` allocates, run
+    once eagerly and then captured as one CUDA graph into ``pool``, both
+    on ``stream`` (:func:`capture_stream` when None), under the
+    process-wide lock, in the ``thread_local`` capture mode. Returns
+    (graph, inputs, outputs): a replay reads the inputs and rewrites the
+    outputs in place."""
+    caller = torch.cuda.current_stream(device)
+    stream = stream or capture_stream(device)
+    with _CAPTURE_LOCK:
+        stream.wait_stream(caller)
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            inputs = make_inputs()
+            fn(*inputs)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                out = fn(*inputs)
+        caller.wait_stream(stream)
+    return graph, inputs, out
 
 
 def pool_handle(device):
@@ -421,7 +433,10 @@ class MultiStreamSeparator:
     ``emit_dtype="int16"`` rounds on the card, inside the graph, to 16-bit
     PCM (:func:`pcm16`). ``compute_dtype``, ``num_blocks`` and
     ``forward_fn`` (here from (max_streams, seg_len) to (max_streams,
-    n_src, seg_len)) are as in ``StreamingSeparator``.
+    n_src, seg_len)) are as in ``StreamingSeparator``. With ``model=None``
+    (a deployment bundle's program, ``deploy.load_streaming``) the forward
+    is ``forward_fn`` alone, and ``n_src`` and ``device`` say what the
+    model would.
 
     Usage: ``open(sid)`` -> ``push(sid, chunk)`` (buffers only) ->
     ``step()`` -> {sid: newly finalized audio} -> ``flush(sid)``.
@@ -429,22 +444,27 @@ class MultiStreamSeparator:
 
     def __init__(self, model, max_streams=4, segment=4.0, overlap=0.25,
                  sample_rate=8000, compute_dtype=None, emit_dtype="float32",
-                 num_blocks=None, forward_fn=None):
+                 num_blocks=None, forward_fn=None, n_src=None, device=None):
         if emit_dtype not in ("float32", "int16"):
             raise ValueError(f"emit_dtype must be float32 or int16, got "
                              f"{emit_dtype!r}")
+        if model is None and (forward_fn is None or n_src is None
+                              or device is None):
+            raise ValueError("without a model, forward_fn, n_src and device "
+                             "are needed")
         self.model = model
         self.max_streams = max_streams
         self.seg_len = int(segment * sample_rate)
         self.overlap_len = int(self.seg_len * overlap)
-        self.n_src = model.num_sources
+        self.n_src = model.num_sources if model is not None else n_src
         self.emit_dtype = emit_dtype
         fwd = forward_fn or _model_forward(model, compute_dtype, num_blocks)
 
         def emit(x):
             return (pcm16 if emit_dtype == "int16" else _estimates)(fwd(x))
 
-        device = _device(model)
+        device = _device(model) if model is not None \
+            else torch.device(device)
         self._prog = Program(emit, max_streams, self.seg_len, device,
                              pool=pool_handle(device))
         self._streams: Dict[object, _StreamState] = {}

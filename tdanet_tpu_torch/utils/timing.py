@@ -1,11 +1,13 @@
 """Measurement on the card, shared by ``chip_smoke.py`` and the probes:
-CUDA-event timers, the card's name and power limit, and SNR."""
+CUDA-event timers, a profiled window, the card's name and power limit,
+and SNR."""
 
 from __future__ import annotations
 
 import math
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -65,6 +67,25 @@ def graph_time(fn, reps=50, runs=7):
             fn()
     med, times, flagged = cuda_time(graph.replay, reps=1, runs=runs)
     return med / reps, [t / reps for t in times], [t / reps for t in flagged]
+
+
+def profile_window(fn):
+    """Run ``fn`` under the profiler: (its return, #1's device kernels,
+    all device events' count and ms, the wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ret = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    dw = sum(e.count for e in events if "dw_conv_glob_ln" in e.key)
+    return (ret, dw, sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3, wall)
 
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,

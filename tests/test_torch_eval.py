@@ -505,9 +505,9 @@ def test_audio_test_css_matches_the_jax_cli(cli_run, monkeypatch,
 
 
 def test_cli_device_rules_and_rejections(cli_run, monkeypatch):
-    """--device defaults to cuda and, with no card, raises; --dp, --bundle
-    and --mode sp, whose modules are not ported, are rejected; so is
-    --progressive_depth with --num_blocks."""
+    """--device defaults to cuda and, with no card, raises; --dp above 1
+    and --mode sp, whose modules are not ported, are rejected; so are
+    --bundle and --progressive_depth with --num_blocks."""
     from tdanet_tpu_torch import audio_test, audio_test_css
     root, conf, _ = cli_run
     monkeypatch.chdir(root)
@@ -518,7 +518,7 @@ def test_cli_device_rules_and_rejections(cli_run, monkeypatch):
                        (audio_test_css, ["--test_dir", str(root)])):
         with pytest.raises(SystemExit, match="--device cpu"):
             cli.main(["--conf_dir", conf, *extra])
-    for argv in (["--dp", "2"], ["--bundle", "b"],
+    for argv in (["--dp", "2"], ["--bundle", "b", "--num_blocks", "2"],
                  ["--progressive_depth", "2", "--num_blocks", "2"]):
         with pytest.raises(SystemExit) as e:
             audio_test.main(["--conf_dir", conf, "--device", "cpu", *argv])

@@ -583,3 +583,90 @@ def test_cuda_backward_matches_plain():
                     dw_conv_glob_ln(x, w, b, g, be, stride=stride, K=K),
                     ps, dy)
                 assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+# -- #1 as a registered op (the no-grad path; what torch.export records) --
+
+def _op_operands(t_major, K, bias, B=2, T=37, C=16, seed=0):
+    x, w, b, g, be = _torch(_inputs(B, T, C, K, bias, seed=seed), bias)
+    if t_major:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    return x, w, b, g, be
+
+
+@pytest.mark.parametrize("t_major", [True, False])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("K", [1, 3, 5, 7])
+def test_op_fake_layout_is_the_outputs(t_major, stride, K):
+    """The op's fake implementation (what a tracer sees) has the shape,
+    dtype and strides of the op's output on the CPU, which is the plain
+    version's values in the kernel's layout (x's innermost axis); the
+    wrapper's no-grad path is the op."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    args = _op_operands(t_major, K, bias=K != 1)
+    out = dw.OP(*args, stride, K, 1e-8)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = dw.OP(*(None if a is None else mode.from_tensor(a)
+                       for a in args), stride, K, 1e-8)
+    assert (fake.shape, fake.dtype, fake.stride()) == (
+        out.shape, out.dtype, out.stride())
+    assert out.stride(1 if t_major else 2) == 1
+    want = dw_conv_glob_ln_reference(*args, stride=stride, K=K)
+    assert torch.equal(out, want)
+    assert torch.equal(dw_conv_glob_ln(*args, stride=stride, K=K), want)
+
+
+@pytest.mark.parametrize("t_major", [True, False])
+def test_op_passes_opcheck(t_major):
+    """``torch.library.opcheck``: the schema, the fake implementation
+    against the CPU one, and the op under AOT dispatch, at both strides,
+    with and without a bias, in fp32 and float64."""
+    for stride, K, bias, dtype in ((1, 5, True, torch.float32),
+                                   (2, 5, False, torch.float32),
+                                   (2, 3, True, torch.float64)):
+        args = [None if a is None else a.to(dtype)
+                for a in _op_operands(t_major, K, bias)]
+        torch.library.opcheck(dw.OP, (*args, stride, K, 1e-8))
+
+
+def test_one_site_exports_as_one_op_node():
+    """``torch.export`` of one ConvNorm site (``conv_then_norm`` through
+    #1) keeps exactly one op node, and the program computes the module's
+    output; a site outside #1's range keeps none."""
+    from tdanet_tpu_torch.models.components import ConvNorm
+    torch.manual_seed(0)
+    x = torch.randn(2, 16, 37)
+    for kernel, stride, groups, nodes in ((5, 2, 16, 1), (5, 1, 1, 0)):
+        site = ConvNorm(16, 16, kernel, stride=stride, groups=groups).eval()
+        with torch.no_grad():
+            ep = torch.export.export(site, (x,), strict=False)
+        got = sum(1 for n in ep.graph.nodes if n.target is dw.OP)
+        assert got == nodes
+        with torch.no_grad():
+            torch.testing.assert_close(ep.module()(x), site(x), rtol=0,
+                                       atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_op_under_export():
+    """On the card: an exported ConvNorm site holds one op node, and the
+    program launches the CUDA kernel once a call (its output in x's
+    layout), equal to the eager wrapper's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tdanet_tpu_torch.models.components import ConvNorm
+    torch.manual_seed(0)
+    for t_len, stride in ((2010, 1), (1005, 2)):
+        site = ConvNorm(512, 512, 5, stride=stride, groups=512).cuda().eval()
+        x = torch.randn(1, 512, t_len, device="cuda")
+        with torch.no_grad():
+            ep = torch.export.export(site, (x,), strict=False)
+            program = ep.module()
+            assert sum(1 for n in ep.graph.nodes if n.target is dw.OP) == 1
+            before = dw_conv_glob_ln.launches
+            got = program(x)
+            want = site(x)
+        torch.cuda.synchronize()
+        assert dw_conv_glob_ln.launches == before + 2
+        assert got.stride(2) == 1
+        assert torch.equal(got, want)

@@ -702,6 +702,27 @@ def test_async_server_threads_stop_and_queue_drains(pair):
     assert not server._compiler.is_alive()
 
 
+def test_attention_table_outlives_other_lengths():
+    """The positional table a forward read is served again, and is still
+    alive, after forwards at more lengths than a bounded cache would
+    keep: a captured CUDA graph reads its table and holds no reference to
+    it (``test_graph_replay_after_eager_forwards_at_other_lengths`` is
+    the same on the card)."""
+    import gc
+    import weakref
+    from tdanet_tpu_torch.models.components import MultiHeadAttentionModule
+    mha = MultiHeadAttentionModule(16, 8).eval()
+    x = torch.zeros(1, 16, 40)
+    with torch.inference_mode():
+        mha(x, per_utterance=True)
+        table = weakref.ref(mha._pos_enc(40, 16, x))
+        for T in range(41, 141):
+            mha(torch.zeros(1, 16, T), per_utterance=True)
+    gc.collect()
+    assert table() is not None
+    assert mha._pos_enc(40, 16, x) is table()
+
+
 # -- on the card ------------------------------------------------------------
 
 
@@ -792,3 +813,33 @@ def test_two_inflight_batches_of_one_bucket_keep_their_estimates():
             np.testing.assert_allclose(g, want, rtol=0,
                                        atol=1e-5 * np.abs(want).max())
     assert np.abs(got[0] - got[1]).max() > 1e-3
+
+
+@pytest.mark.gpu
+def test_graph_replay_after_eager_forwards_at_other_lengths():
+    """A captured program replays its own answer after eager forwards at
+    80 other lengths, each with a positional table of its own and memory
+    that the allocator frees and hands out again: bit for bit or at
+    >= 100 dB. cuDNN's deterministic algorithms are on, since the
+    decoder's transposed convolution otherwise sums in an order that
+    changes from one replay to the next."""
+    from tdanet_tpu_torch.utils.timing import snr_db
+    model = _card_model()
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        prog = tserving.Program(lambda x: model(x, per_utterance=True), 1,
+                                8192, torch.device("cuda"),
+                                pool=torch.cuda.graph_pool_handle())
+        x = _noise(8192, np.random.default_rng(2))[None]
+        want = prog(x)
+        with torch.inference_mode():
+            for k in range(1, 81):
+                model(torch.zeros((1, 8192 + k * model.lcm), device="cuda"),
+                      per_utterance=True)
+        torch.cuda.synchronize()
+        got = prog(x)
+    finally:
+        torch.backends.cudnn.deterministic = before
+    if not np.array_equal(got, want):
+        assert snr_db(torch.from_numpy(want), torch.from_numpy(got)) >= 100
