@@ -5,7 +5,8 @@ std rows, and optionally the separated wavs.
     python -m tdanet_tpu_torch.audio_test --conf_dir <exp>/conf.yml \\
         [--ckpt_path path.pth] [--save_output true] [--save_path dir] \\
         [--batch_size 8] [--num_blocks D | --progressive_depth D1 \\
-        [--progressive_threshold 0.05] | --bundle dir] [--device cuda|cpu]
+        [--progressive_threshold 0.05] | --bundle dir] [--dp N]
+        [--device cuda|cuda:N|cpu]
 
 The experiment directory is ``main_args.exp_dir`` of the conf when the
 trainer wrote one, else Experiments/checkpoint/<exp_name>; the checkpoint
@@ -14,6 +15,11 @@ deployment bundle (``python -m tdanet_tpu_torch.export_bundle``) in place
 of the checkpoint and the model code. The device is CUDA unless
 ``--device cpu`` asks for the CPU; without a card it raises. The exit code
 is 1 when the result is empty or not finite.
+
+``--dp N`` splits every batch (``--batch_size`` a multiple of N) over N
+replicas of the model on a local mesh (``parallel.make_mesh``): ``--device
+cuda`` puts them on the first N cards, a named device (``cuda:0``, or
+``cpu``) holds all N.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ def experiment_dir(conf):
 
 def resolve_device(name):
     """``torch.device(name)``; CUDA without a card raises."""
-    if name == "cuda" and not torch.cuda.is_available():
+    if torch.device(name).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run "
                          "on the CPU")
     return torch.device(name)
@@ -76,16 +82,17 @@ def build_parser():
                    help="escalate utterances whose last-iteration relative "
                         "delta is above this (with --progressive_depth)")
     p.add_argument("--dp", type=int, default=None,
-                   help="1 (or less) is the one-device path, as in the "
-                        "JAX CLI; above 1 needs a mesh, not ported yet "
-                        "(ROADMAP A #10)")
+                   help="split every batch over this many replicas (a "
+                        "local mesh; --batch_size a multiple of it); 1 (or "
+                        "less) is the one-device path, as in the JAX CLI")
     p.add_argument("--bundle", default=None,
                    help="evaluate through a deployment bundle "
                         "(python -m tdanet_tpu_torch.export_bundle) instead "
                         "of the model code: the shipped artifact's metrics; "
                         "the bundle must export every test-set length "
                         "(--lengths_from_manifest at export)")
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda, cuda:N or cpu")
     return p
 
 
@@ -99,9 +106,12 @@ def main(argv=None):
         p.error("--bundle serves fixed exported programs; "
                 "--num_blocks/--progressive_depth/--dp do not apply "
                 "(choose depth and dtype at export)")
-    if args.dp is not None and args.dp > 1:
-        p.error("--dp above 1 is not ported yet: parallel/mesh.py has no "
-                "counterpart in tdanet_tpu_torch (ROADMAP A #10)")
+    if args.device.split(":")[0] not in ("cuda", "cpu"):
+        p.error(f"--device {args.device}: cuda, cuda:N or cpu")
+    dp = args.dp if args.dp is not None and args.dp > 1 else None
+    if dp is not None and args.batch_size % dp:
+        p.error(f"--dp {dp} splits batches of --batch_size rows: it must be "
+                f"a multiple of {dp}")
     if args.progressive_depth is not None and args.num_blocks is not None:
         p.error("--progressive_depth is exclusive with --num_blocks "
                 "(adaptive depth subsumes the fixed override)")
@@ -123,6 +133,11 @@ def main(argv=None):
         model = None
     else:
         model = load_model(conf, ckpt, device)
+    mesh = None
+    if dp is not None:
+        from tdanet_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(dp=dp, devices=None if args.device == "cuda"
+                         else [device] * dp)
 
     dm = getattr(data_zoo, conf["datamodule"]["data_name"])(
         **{**conf["datamodule"]["data_config"], "segment": None})
@@ -167,7 +182,8 @@ def main(argv=None):
                 model, lengths, lambda i: test_set[i],
                 depth1=args.progressive_depth,
                 threshold=args.progressive_threshold,
-                batch_size=max(args.batch_size, 1), stats=pstats)
+                batch_size=max(args.batch_size, 1), stats=pstats,
+                mesh=mesh)
             for done, (_, item, est) in enumerate(
                     progress.track(stream, total=len(test_set))):
                 emit(done, *item, est)
@@ -180,7 +196,8 @@ def main(argv=None):
             # batch overlap the next batch's forward
             stream = separate_batched_stream(
                 model, lengths, lambda i: test_set[i],
-                batch_size=args.batch_size, num_blocks=args.num_blocks)
+                batch_size=args.batch_size, num_blocks=args.num_blocks,
+                mesh=mesh)
             for done, (_, item, est) in enumerate(
                     progress.track(stream, total=len(test_set))):
                 emit(done, *item, est)

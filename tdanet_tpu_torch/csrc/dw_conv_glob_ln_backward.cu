@@ -64,9 +64,9 @@
 //   Phase 1: per thread, the sums of g and g * xh over the CTA's tiles of
 //     a sample, reduced once per (sample, CTA) (warp shuffles, then the
 //     warps in order, in double) into parts (B, G); per channel, dgamma
-//     and dbeta in registers over the CTA's tiles of one channel tile,
-//     reduced once per (CTA, channel tile) into cparts (G, segs, K + 3,
-//     channels of a tile).
+//     and dbeta in registers, in double, over the CTA's tiles of one
+//     channel tile, reduced once per (CTA, channel tile) into cparts (G,
+//     segs, K + 3, channels of a tile), doubles.
 //   Grid barrier.
 //   Phase 2, the run walked backwards: per sample, A and M from the parts
 //     in CTA order; dz of the thread's rows in registers, dbias and dw
@@ -439,7 +439,7 @@ __device__ __forceinline__ void store_line(TX* row, int s0, int sb,
 // Two sums over the CTA in a fixed order (an xor butterfly in each warp
 // in double, then the warps in order), written by thread 0 to dst.
 // red: 2 * kWarps doubles.
-__device__ __forceinline__ void cta_sum2(float u, float v, double* red,
+__device__ __forceinline__ void cta_sum2(double u, double v, double* red,
                                          double2* dst) {
   double a = u, b = v;
 #pragma unroll
@@ -465,30 +465,52 @@ __device__ __forceinline__ void cta_sum2(float u, float v, double* red,
 
 // Each thread's NQ per-channel sums, reduced over the threads of its
 // channel in a fixed order (T innermost: the lanes of its warp; C
-// innermost: the warps of its lane, through chred) and written as
-// quantities q0.. of dst[q * TCC + channel].
+// innermost: the warps of its lane, through chred), in double, and
+// written (``add``: added) as quantities q0.. of dst[q * TCC + channel].
+// A parameter's gradient is a sum over every row of the batch whose terms
+// cancel (dgamma and dbeta of a normalised site): every sum above a
+// thread's own rows is taken in double.
 template <bool TC, int TCC, int NQ>
 __device__ __forceinline__ void flush(const float (&v)[NQ], int q0,
-                                      float* dst, float* chred) {
+                                      double* dst, float* chred,
+                                      bool add = false) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int t = 0; t < NQ; ++t) {
     if constexpr (TC) {
-      float a = v[t];
+      double a = v[t];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFull, a, o);
-      if (lane == 0) dst[(q0 + t) * TCC + warp] = a;
+      double* d = dst + (q0 + t) * TCC + warp;
+      if (lane == 0) *d = add ? *d + a : a;
     } else {
       chred[warp * 32 + lane] = v[t];
       __syncthreads();
       if (warp == 0) {
-        float a = 0.f;
+        double a = 0.0;
         for (int w = 0; w < kWarps; ++w) a += chred[w * 32 + lane];
-        dst[(q0 + t) * TCC + lane] = a;
+        double* d = dst + (q0 + t) * TCC + lane;
+        *d = add ? *d + a : a;
       }
       __syncthreads();
     }
   }
+}
+
+// The same for sums a thread keeps in double (phase 1's dgamma and
+// dbeta): each as a float and the float of its remainder, two passes
+// through chred's floats, so that no rounding to float enters the sum.
+template <bool TC, int TCC, int NQ>
+__device__ __forceinline__ void flush(const double (&v)[NQ], int q0,
+                                      double* dst, float* chred) {
+  float hi[NQ], lo[NQ];
+#pragma unroll
+  for (int t = 0; t < NQ; ++t) {
+    hi[t] = static_cast<float>(v[t]);
+    lo[t] = static_cast<float>(v[t] - static_cast<double>(hi[t]));
+  }
+  flush<TC, TCC>(hi, q0, dst, chred);
+  flush<TC, TCC>(lo, q0, dst, chred, true);
 }
 
 // The CTA that owns tile i: the largest j with j N / G <= i.
@@ -506,7 +528,7 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
                                 const float* __restrict__ stats,
                                 TX* __restrict__ dx, float* dw, float* dbias,
                                 float* dgamma, float* dbeta, double2* parts,
-                                float* cparts, Geo g) {
+                                double* cparts, Geo g) {
   using Cf = Cfg<TX, K, S, TC, RW>;
   constexpr int TT = Cf::TT, TCC = Cf::TCC, FH = Cf::FH, HB = Cf::HB,
                 HA = Cf::HA, P = Cf::P, Q = Cf::Q, E = Cf::E,
@@ -532,7 +554,7 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
   const int cl = TC ? warp : lane;  // the thread's channel in a tile
   const int q = TC ? lane : warp;   // its rows: 8 q .. 8 q + 7
   const bool first_rows = q == 0, last_rows = q == TT / kRows - 1;
-  float* my_parts = cparts + static_cast<size_t>(j) * g.segs * Q * TCC;
+  double* my_parts = cparts + static_cast<size_t>(j) * g.segs * Q * TCC;
 
   auto box = [&](int i, int& b, int& t0, int& c0) {
     const int r = i % g.per_sample;
@@ -611,8 +633,10 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
   // three.
   auto slot1 = [&](int k) { return k < R ? k : R + (k - R) % kRing; };
   for (int k = 0; k < min(n, R + kRing); ++k) load(lo + k, slot1(k));
-  float s1 = 0.f, s2 = 0.f;
-  float pgb[2] = {0.f, 0.f};  // dgamma, dbeta
+  // in double: the sums over the CTA's rows of a channel tile and of a
+  // sample cancel (dgamma and dbeta of a normalised site)
+  double s1 = 0.0, s2 = 0.0;
+  double pgb[2] = {0.0, 0.0};  // dgamma, dbeta
   int cur_b = -1, cur_grp = -1;
   int b, t0, c0;  // the tile's box, stepped along the run
   box(lo, b, t0, c0);
@@ -635,11 +659,11 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
       }
       if (b != cur_b) {
         if (cur_b >= 0) cta_sum2(s1, s2, red, parts + cur_b * G + j);
-        s1 = s2 = 0.f;
+        s1 = s2 = 0.0;
         cur_b = b;
         sample(b);
       }
-      pgb[0] = pgb[1] = 0.f;
+      pgb[0] = pgb[1] = 0.0;
       cur_grp = grp;
       params(c0);
     }
@@ -656,7 +680,7 @@ dw_conv_glob_ln_backward_kernel(const TX* __restrict__ x,
 #pragma unroll
       for (int kk = 0; kk < K; ++kk) a += xw[r * S + kk] * wk[kk];
       const float xh = (((a + bs) - shi) - slo) * rstd;
-      pgb[0] += dv[r] * xh;
+      pgb[0] += static_cast<double>(dv[r]) * xh;
       pgb[1] += dv[r];
     }
     PHASE_MARK(3)
@@ -981,7 +1005,7 @@ struct Plan {
   int smem;       // dynamic shared memory: the fixed part and a slot for
                   // each tile of the longest run, up to max_slots
   long long kept;    // tiles kept from phase 1 to phase 2, all CTAs
-  long long cparts;  // floats of the per-(CTA, channel tile) sums
+  long long cparts;  // doubles of the per-(CTA, channel tile) sums
 };
 
 // The plan for (B, T_out, C) and at most `capacity` CTAs. CTA j of G owns
@@ -1047,7 +1071,7 @@ int dw_conv_glob_ln_backward_capacity(int x_bf16, int K, int stride,
 // a tile's slot and of the shared memory before the slots, tiles, grid,
 // tile slots a CTA holds, channel tiles a CTA's run touches at most,
 // dynamic shared memory bytes, tiles kept in shared memory across the
-// grid barrier (all CTAs), floats of cparts. Needs no card. Returns a
+// grid barrier (all CTAs), doubles of cparts. Needs no card. Returns a
 // cudaError_t.
 int dw_conv_glob_ln_backward_plan(int x_bf16, int K, int stride,
                                   int t_contig, int rows, int B, int T_out,
@@ -1069,14 +1093,14 @@ int dw_conv_glob_ln_backward_plan(int x_bf16, int K, int stride,
 // axis (T where t_contig); w (C, K), bias (C,) or null, gamma (C,):
 // contiguous, fp32 (p_bf16 == 0) or bf16; stats: fp32 (B, 3) (hi, lo,
 // rstd) from the forward; dw (C, K), dbias, dgamma, dbeta (C,): fp32
-// outputs; parts: (B, grid) double2; cparts: the plan's floats
+// outputs; parts: (B, grid) double2; cparts: the plan's doubles
 // (dw_conv_glob_ln_backward_plan with capacity = grid). rows picks the
 // instance, grid is at most the instance's capacity. One cooperative
 // launch on ``stream``. Returns a cudaError_t, 0 on success.
 int dw_conv_glob_ln_backward_launch(
     const void* x, const void* dy, const void* w, const void* bias,
     const void* gamma, const float* stats, void* dx, float* dw, float* dbias,
-    float* dgamma, float* dbeta, void* parts, float* cparts, int B, int T,
+    float* dgamma, float* dbeta, void* parts, double* cparts, int B, int T,
     int C, int T_out, int K, int stride, long long xb, long long xt,
     long long xc, long long yb, long long yt, long long yc, long long zb,
     long long zt, long long zc, int t_contig, int x_bf16, int p_bf16,

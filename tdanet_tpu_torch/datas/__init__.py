@@ -1,6 +1,6 @@
 """Data layer: manifest datasets, datamodules and the loader (counterpart
 of ``tdanet_tpu/datas``; the C++ native loader and ``preprocess`` are not
-ported yet, ROADMAP A5)."""
+ported yet, ROADMAP A #9)."""
 
 from tdanet_tpu_torch.datas.datasets import (  # noqa: F401
     Loader, SeparationDataset, normalize_wav, pad_to_lattice)

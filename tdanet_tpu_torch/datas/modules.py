@@ -6,7 +6,7 @@ slices long-form wavs into overlapped windows for streaming separation.
 Every loader here is the Python :class:`~tdanet_tpu_torch.datas.datasets.
 Loader`. The JAX package prefers its C++ thread-pool loader
 (``native/loader.cc`` through ``datas/native_loader.py``) for fixed-length
-training batches; that loader is not ported yet (ROADMAP A5), so the
+training batches; that loader is not ported yet (ROADMAP A #9), so the
 port reads every batch through the Python loader, which gives the same
 batches.
 """

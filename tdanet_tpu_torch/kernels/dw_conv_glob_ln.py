@@ -79,7 +79,7 @@ class BackwardPlan(NamedTuple):
     segs: int        # channel tiles one CTA's run touches, at most
     smem: int        # dynamic shared memory of the launch, bytes
     kept: int        # tiles kept in shared memory from phase 1 to 2
-    cparts: int      # floats of the per-(CTA, channel tile) sums
+    cparts: int      # doubles of the per-(CTA, channel tile) sums
 
 
 def backward_rows(T_out, stride, t_contig):
@@ -295,7 +295,7 @@ def _launch_backward(dy, x, weight, bias, gamma, stats, stride, K,
     bp = backward_plan(x_bf16, K, stride, t_contig, rows, B, T_out, C,
                        dev.index)
     parts = torch.empty(2 * B * bp.grid, dtype=torch.float64, device=dev)
-    cparts = torch.empty(bp.cparts, **f32)
+    cparts = torch.empty(bp.cparts, dtype=torch.float64, device=dev)
     err = _backward_library().dw_conv_glob_ln_backward_launch(
         x.data_ptr(), dy.data_ptr(), w.data_ptr(),
         None if b is None else b.data_ptr(), g.data_ptr(), stats.data_ptr(),

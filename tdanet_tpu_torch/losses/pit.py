@@ -16,6 +16,8 @@ from itertools import permutations
 import numpy as np
 import torch
 
+from tdanet_tpu_torch.parallel import collectives
+
 
 def _perm_tensor(n_src):
     return np.array(list(permutations(range(n_src))), dtype=np.int64)
@@ -67,7 +69,15 @@ class PITLossWrapper:
     pairwise matrix), ``pw_pt`` (a single-source loss over every pair) and
     ``perm_avg`` (a multi-source loss over every permutation);
     ``threshold_byloss`` averages only the utterances whose loss is above
-    -30 dB, and all of them when none is."""
+    -30 dB, and all of them when none is.
+
+    ``dp_group`` (a call's keyword): the data-parallel group whose ranks
+    hold the rest of the global batch. The mean is then the global batch's:
+    the count of kept utterances, and whether any is kept, are summed over
+    ranks (without a gradient), each rank divides its own sum by the
+    global count, and the returned loss is the sum of the ranks' terms
+    (``collectives.global_sum``): the same value on every rank, whose
+    gradient reaches each rank's own utterances."""
 
     def __init__(self, loss_func, pit_from="pw_mtx", perm_reduce=None,
                  threshold_byloss=True):
@@ -78,7 +88,8 @@ class PITLossWrapper:
         self.perm_reduce = perm_reduce
         self.threshold_byloss = threshold_byloss
 
-    def __call__(self, ests, targets, return_ests=False, **kwargs):
+    def __call__(self, ests, targets, return_ests=False, dp_group=None,
+                 **kwargs):
         n_src = targets.shape[1]
         if self.pit_from == "pw_mtx":
             pw_loss = self.loss_func(ests, targets, **kwargs)
@@ -91,7 +102,7 @@ class PITLossWrapper:
                  for p in perms], dim=1)
             min_loss = torch.amin(loss_set, dim=1)
             idx = torch.argmin(loss_set, dim=1)
-            mean_loss = min_loss.mean()
+            mean_loss = _mean(min_loss, dp_group)
             if return_ests:
                 batch_indices = torch.from_numpy(perms).to(ests.device)[idx]
                 return mean_loss, reorder_sources(ests, batch_indices)
@@ -101,12 +112,15 @@ class PITLossWrapper:
         min_loss, batch_indices = find_best_perm(pw_loss)
         if self.threshold_byloss:
             mask = min_loss > -30.0
-            cnt = mask.sum()
+            cnt = collectives.all_sum(mask.sum(), dp_group)
             masked = torch.where(mask, min_loss, torch.zeros_like(
                 min_loss)).sum() / torch.clamp(cnt, min=1)
-            mean_loss = torch.where(cnt > 0, masked, min_loss.mean())
+            mean_loss = collectives.global_sum(
+                torch.where(cnt > 0, masked, _local_mean(min_loss,
+                                                         dp_group)),
+                dp_group)
         else:
-            mean_loss = min_loss.mean()
+            mean_loss = _mean(min_loss, dp_group)
         if return_ests:
             return mean_loss, reorder_sources(ests, batch_indices)
         return mean_loss
@@ -118,3 +132,17 @@ class PITLossWrapper:
                                                          T)
         t = targets.repeat(1, n_src, 1).reshape(B * n_src * n_src, T)
         return self.loss_func(e, t, **kwargs).reshape(B, n_src, n_src)
+
+
+def _local_mean(x, dp_group):
+    """This rank's term of the global batch's mean of ``x``: its sum over
+    the global row count (the mean itself on one process)."""
+    _, world = collectives.rank_and_world(dp_group)
+    if world == 1:
+        return x.mean()
+    return x.sum() / (x.shape[0] * world)
+
+
+def _mean(x, dp_group):
+    """The global batch's mean of the per-utterance ``x``."""
+    return collectives.global_sum(_local_mean(x, dp_group), dp_group)

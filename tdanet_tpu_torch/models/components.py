@@ -32,6 +32,7 @@ from torch import nn
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (dw_conv_glob_ln,
                                                       supports)
 from tdanet_tpu_torch.ops import basic as ops
+from tdanet_tpu_torch.parallel import collectives
 
 
 def _untraced():
@@ -221,12 +222,13 @@ class FFN(nn.Module):
         self.fc2 = ConvNorm(hidden, in_features, 1, bias=False, norm=norm)
         self.drop = drop
 
-    def forward(self, x, training=False, generator=None):
+    def forward(self, x, training=False, generator=None, dp_group=None):
         x = self.fc1(x)
         x = ops.conv1d(x, self.dwconv.weight, self.dwconv.bias, padding=2,
                        groups=self.dwconv.groups)
-        x = ops.dropout(F.relu(x), generator, self.drop, training)
-        return ops.dropout(self.fc2(x), generator, self.drop, training)
+        x = ops.dropout(F.relu(x), generator, self.drop, training, dp_group)
+        return ops.dropout(self.fc2(x), generator, self.drop, training,
+                           dp_group)
 
 
 class MultiHeadAttentionModule(nn.Module):
@@ -275,30 +277,35 @@ class MultiHeadAttentionModule(nn.Module):
         return _pe_table(T, C, like.dtype, like.device)
 
     def forward(self, x, per_utterance=False, training=False,
-                generator=None):
+                generator=None, dp_group=None):
         B, C, T = x.shape
         a = self.attn
         out = ops.layer_norm(x.transpose(1, 2), self.attn_in_norm.weight,
                              self.attn_in_norm.bias)
         out = out + self._pos_enc(T, C, out)
         drop = dict(dropout_rate=self.dropout, generator=generator,
-                    training=training)
+                    training=training, dp_group=dp_group)
+        _, world = collectives.rank_and_world(dp_group)
         if self.batch_first:  # attention over T: (T, B, C) is (L, N, E)
             q = out.transpose(0, 1)
             attn_out = ops.multi_head_attention(
                 q, q, q, a.in_proj_weight, a.in_proj_bias, a.out_proj.weight,
                 a.out_proj.bias, self.n_head, **drop).transpose(0, 1)
-        elif per_utterance or (B == 1 and not training):
+        elif per_utterance or (B * world == 1 and not training):
             v = F.linear(out, a.in_proj_weight[2 * C:].to(out.dtype),
                          a.in_proj_bias[2 * C:].to(out.dtype))
             attn_out = F.linear(v, a.out_proj.weight.to(out.dtype),
                                 a.out_proj.bias.to(out.dtype))
         else:
+            # over the batch axis: under dp_group the keys and values are
+            # every rank's rows, the queries this rank's
+            kv = collectives.gather_rows(out, dp_group)
             attn_out = ops.multi_head_attention(
-                out, out, out, a.in_proj_weight, a.in_proj_bias,
-                a.out_proj.weight, a.out_proj.bias, self.n_head, **drop)
+                out, kv, kv, a.in_proj_weight, a.in_proj_bias,
+                a.out_proj.weight, a.out_proj.bias, self.n_head,
+                batch_axis=1, **drop)
         res = (attn_out if self.self_residual else out) + ops.dropout(
-            attn_out, generator, self.dropout, training)
+            attn_out, generator, self.dropout, training, dp_group)
         res = ops.layer_norm(res, self.norm.weight, self.norm.bias)
         return res.transpose(1, 2)
 
@@ -322,12 +329,14 @@ class GA(nn.Module):
         self.drop_path = drop_path
 
     def forward(self, x, per_utterance=False, training=False,
-                generator=None):
+                generator=None, dp_group=None):
         if self.attn is not None:
-            a = self.attn(x, per_utterance, training, generator)
-            x = x + ops.drop_path(a, generator, self.drop_path, training)
-        m = self.mlp(x, training, generator)
-        return x + ops.drop_path(m, generator, self.drop_path, training)
+            a = self.attn(x, per_utterance, training, generator, dp_group)
+            x = x + ops.drop_path(a, generator, self.drop_path, training,
+                                  dp_group)
+        m = self.mlp(x, training, generator, dp_group)
+        return x + ops.drop_path(m, generator, self.drop_path, training,
+                                 dp_group)
 
 
 class LA(nn.Module):
@@ -387,9 +396,9 @@ class UConvBlock(nn.Module):
         self.res_conv = nn.Conv1d(in_channels, out_channels, 1)
 
     def forward(self, x, per_utterance=False, training=False,
-                generator=None):
+                generator=None, dp_group=None):
         return self.tail(x, *self.pyramid(x), per_utterance, training,
-                         generator)
+                         generator, dp_group)
 
     def pyramid(self, x):
         """The block's first half: (the depth scales, their pooled sum at
@@ -404,10 +413,10 @@ class UConvBlock(nn.Module):
         return output, global_f
 
     def tail(self, residual, output, global_f, per_utterance=False,
-             training=False, generator=None):
+             training=False, generator=None, dp_group=None):
         """The block's second half: GA, LA fusion, expansion, res_conv."""
         global_f = self.globalatt(global_f, per_utterance, training,
-                                  generator)
+                                  generator, dp_group)
         x_fused = [la(output[i], global_f)
                    for i, la in enumerate(self.loc_glo_fus)]
         expanded = None
@@ -473,7 +482,7 @@ class UConvBlockInject(nn.Module):
         self.res_conv = nn.Conv1d(C, out_channels, 1)
 
     def forward(self, x, per_utterance=False, training=False,
-                generator=None):
+                generator=None, dp_group=None):
         residual, d = x, self.depth
         output = [self.spp_dw[0](self.proj_1x1(x))]
         for k in range(1, d):
@@ -489,7 +498,7 @@ class UConvBlockInject(nn.Module):
         for fea in pooled[1:]:
             global_f = global_f + fea
         global_f = self.globalatt(global_f, per_utterance, training,
-                                  generator)
+                                  generator, dp_group)
         if self.inject == "gate":
             x_fused = [torch.sigmoid(ops.interpolate_nearest(
                 global_f, o.shape[-1])) * o for o in output]
@@ -555,9 +564,11 @@ class Recurrent(nn.Module):
             nn.PReLU())
 
     def forward(self, x, n_iter=None, per_utterance=False, training=False,
-                generator=None):
+                generator=None, dp_group=None):
         """``n_iter`` overrides the iteration count (early exit: the
-        weights are shared, so any depth up to the trained one is valid)."""
+        weights are shared, so any depth up to the trained one is valid).
+        ``dp_group``: the data-parallel process group whose ranks hold the
+        rest of the batch (``parallel/collectives.py``), or None."""
         it_count = self.iter if n_iter is None else int(n_iter)
         if not 1 <= it_count <= self.iter:
             raise ValueError(
@@ -568,7 +579,7 @@ class Recurrent(nn.Module):
         mixture = x
         for i in range(it_count):
             args = (x, mixture, i > 0, per_utterance, training,
-                    _draw_seed(generator, training))
+                    _draw_seed(generator, training), dp_group)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     self._iteration, *args, use_reentrant=False)
@@ -617,13 +628,14 @@ class Recurrent(nn.Module):
             x = self._iteration(x, mixture, True, per_utterance, False, None)
         return x
 
-    def _iteration(self, x, mixture, concat, per_utterance, training, seed):
+    def _iteration(self, x, mixture, concat, per_utterance, training, seed,
+                   dp_group=None):
         """One iteration; its dropout masks come from a generator on x's
         device seeded with ``seed``."""
         if concat:
             x = self._concat(mixture + x)
         return self.unet(x, per_utterance, training,
-                         _iteration_generator(seed, x))
+                         _iteration_generator(seed, x), dp_group)
 
     def _concat(self, inp):
         conv, act = self.concat_block
@@ -678,21 +690,21 @@ class GatedRecurrent(nn.Module):
         self.in_act = nn.PReLU()
 
     def forward(self, x, per_utterance=False, training=False,
-                generator=None):
+                generator=None, dp_group=None):
         if training and generator is None:
             raise ValueError("training needs a torch.Generator")
         mixture = x
-        x = self._unet(x, per_utterance, training, generator)
+        x = self._unet(x, per_utterance, training, generator, dp_group)
         for _ in range(1, self.iter):
             r = torch.sigmoid(self.reset_gate_norm(
                 self.reset_conv_x(mixture) + self.reset_conv_h(x)))
             u = torch.sigmoid(self.update_gate_norm(
                 self.update_conv_x(mixture) + self.update_conv_h(x)))
-            h = self._unet(x, per_utterance, training, generator)
+            h = self._unet(x, per_utterance, training, generator, dp_group)
             x = h * u + mixture * r
         return x
 
-    def _unet(self, x, per_utterance, training, generator):
+    def _unet(self, x, per_utterance, training, generator, dp_group):
         gen = _iteration_generator(_draw_seed(generator, training), x)
         return self.unet(ops.prelu(x, self.in_act.weight), per_utterance,
-                         training, gen)
+                         training, gen, dp_group)

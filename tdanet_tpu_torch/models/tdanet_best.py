@@ -87,7 +87,8 @@ class TDANetBest(BaseModel):
         return est[:, :, K - S: est.shape[-1] - (rest + K - S)]
 
     def forward(self, wav, num_blocks=None, per_utterance=False, *,
-                training=False, generator=None, compute_dtype=None):
+                training=False, generator=None, compute_dtype=None,
+                dp_group=None):
         """wav (T,), (B, T) or (B, 1, T) -> estimates (n_src, T) or
         (B, n_src, T), in ``compute_dtype`` or else the parameters' dtype.
 
@@ -101,7 +102,14 @@ class TDANetBest(BaseModel):
         parameters to it, the parameters stay in their own dtype (fp32
         master weights, whose gradients stay fp32) and statistics
         accumulate in at least fp32; the depthwise ConvNorm kernels read
-        fp32 parameters as they are."""
+        fp32 parameters as they are.
+
+        ``dp_group``: the data-parallel process group whose ranks hold the
+        other rows of the global batch (this rank's rows are ``wav``). The
+        batch-axis attention then attends over every rank's rows and the
+        dropout masks are the global batch's, so the ranks together
+        compute the one-process forward of the global batch
+        (``parallel/collectives.py``)."""
         was_one_d = wav.ndim == 1
         if was_one_d:
             wav = wav[None]
@@ -110,7 +118,8 @@ class TDANetBest(BaseModel):
         wav = wav.to(compute_dtype or self.encoder.weight.dtype)
         x, s, rest = self._front(wav)
         x = self.sm(x, n_iter=num_blocks, per_utterance=per_utterance,
-                    training=training, generator=generator)
+                    training=training, generator=generator,
+                    dp_group=dp_group)
         est = self._back(x, s, rest)
         return est[0] if was_one_d else est
 

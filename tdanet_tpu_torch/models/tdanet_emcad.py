@@ -183,15 +183,17 @@ class GAEra(nn.Module):
                                 drop=mlp_drop)
 
     def forward(self, x, per_utterance=False, training=False, generator=None,
-                rpe=None):
+                rpe=None, dp_group=None):
         if self.attn_kind == "mha":
-            a = self.attn(x, per_utterance, training, generator)
+            a = self.attn(x, per_utterance, training, generator, dp_group)
         elif self.attn_kind == "osra":
-            a = self.attn(x, training, generator, rpe)
+            a = self.attn(x, training, generator, rpe, dp_group)
         if self.attn is not None:
-            x = x + ops.drop_path(a, generator, self.drop_path, training)
-        m = self.mlp(x, training, generator)
-        return x + ops.drop_path(m, generator, self.drop_path, training)
+            x = x + ops.drop_path(a, generator, self.drop_path, training,
+                                  dp_group)
+        m = self.mlp(x, training, generator, dp_group)
+        return x + ops.drop_path(m, generator, self.drop_path, training,
+                                 dp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -288,12 +290,13 @@ class UConvBlockEra(_EraBlock):
             self.relative_pos_enc.zero_()
 
     def forward(self, x, per_utterance=False, training=False,
-                generator=None):
+                generator=None, dp_group=None):
         output, global_f = self._pyramid(x)
         global_f = self.globalatt(global_f, per_utterance, training,
-                                  generator, rpe=self.relative_pos_enc)
+                                  generator, rpe=self.relative_pos_enc,
+                                  dp_group=dp_group)
         if self.fusion == "mixers":
-            x_fused = [mixer(o, global_f, training, generator)
+            x_fused = [mixer(o, global_f, training, generator, dp_group)
                        for mixer, o in zip(self.global_mixers, output)]
         else:
             x_fused = [ops.interpolate_nearest(global_f, o.shape[-1]) + o
@@ -342,10 +345,10 @@ class UConvBlockV14(_EraBlock):
         self.res_conv = nn.Conv1d(C, out_channels, 1)
 
     def forward(self, x, per_utterance=False, training=False,
-                generator=None):
+                generator=None, dp_group=None):
         output, global_f = self._pyramid(x)
         global_f = self.globalatt(global_f, per_utterance, training,
-                                  generator)
+                                  generator, dp_group=dp_group)
         x_fused = [self.lgag_0(global_f, output[-1])]
         tmp_x = output[-1]
         for idx in range(self.depth - 1):
@@ -430,12 +433,14 @@ class _EraTDANet(BaseModel):
         return self
 
     def forward(self, wav, per_utterance=False, *, training=False,
-                generator=None, compute_dtype=None):
+                generator=None, compute_dtype=None, dp_group=None):
         """wav (T,), (B, T) or (B, 1, T) -> estimates (n_src, T) or
         (B, n_src, T), in ``compute_dtype`` or else the parameters' dtype.
         ``per_utterance=True`` separates every row as if it were alone
         (the unfixed MHA's batch-axis collapse); ``training=True`` turns on
-        dropout and drop-path, with masks from ``generator``."""
+        dropout and drop-path, with masks from ``generator``; ``dp_group``
+        is the data-parallel group whose ranks hold the rest of the batch
+        (TDANetBest.forward)."""
         was_one_d = wav.ndim == 1
         if was_one_d:
             wav = wav[None]
@@ -450,7 +455,7 @@ class _EraTDANet(BaseModel):
         x = ops.conv1d(self.ln(s), self.bottleneck.weight,
                        self.bottleneck.bias)
         x = self.sm(x, per_utterance=per_utterance, training=training,
-                    generator=generator)
+                    generator=generator, dp_group=dp_group)
         act, head = self.mask_net
         x = ops.conv1d(ops.prelu(x, act.weight), head.weight, head.bias)
         B = x.shape[0]

@@ -138,7 +138,7 @@ class _StandardTDANet(BaseModel):
         return (x * s[:, None]).reshape(B, self.num_sources * channels, -1)
 
     def forward(self, wav, per_utterance=False, *, training=False,
-                generator=None, compute_dtype=None):
+                generator=None, compute_dtype=None, dp_group=None):
         """wav (T,), (B, T) or (B, 1, T) -> estimates (n_src, T) or
         (B, n_src, T), in ``compute_dtype`` or else the parameters' dtype.
         ``per_utterance=True`` separates every row as if it were alone (the
@@ -149,7 +149,7 @@ class _StandardTDANet(BaseModel):
         x, rest = self._pad(wav)
         x, s = self._encode(x)
         x = self.sm(x, per_utterance=per_utterance, training=training,
-                    generator=generator)
+                    generator=generator, dp_group=dp_group)
         _, S, P = self.win
         est = ops.conv_transpose1d(self._mask(x, s, s.shape[1]),
                                    self.decoder.weight, stride=S, padding=P)
@@ -260,7 +260,7 @@ class TDANetChunk(BaseModel):
             nn.PReLU(), nn.Conv1d(out_channels, num_sources * n_chunk, 1))
 
     def forward(self, wav, per_utterance=False, *, training=False,
-                generator=None, compute_dtype=None):
+                generator=None, compute_dtype=None, dp_group=None):
         """wav (T,), (B, T) or (B, 1, T), T a multiple of ``n_chunk`` ->
         (B, n_src, T)."""
         wav, _ = _as_batch(wav, compute_dtype or self.bottleneck.weight.dtype)
@@ -269,7 +269,7 @@ class TDANetChunk(BaseModel):
         x = self.ln(s)
         x = ops.conv1d(x, self.bottleneck.weight, self.bottleneck.bias)
         x = self.sm(x, per_utterance=per_utterance, training=training,
-                    generator=generator)
+                    generator=generator, dp_group=dp_group)
         act, head = self.mask_net
         x = ops.conv1d(ops.prelu(x, act.weight), head.weight, head.bias)
         x = F.relu(x.reshape(B, self.num_sources, self.n_chunk, -1))

@@ -185,7 +185,8 @@ class Attention1D(nn.Module):
                 ConvModule(dim, dim, 1, groups=dim, bias=False, norm=True,
                            act=None)])
 
-    def _attend(self, x, context, training=False, generator=None, rpe=None):
+    def _attend(self, x, context, training=False, generator=None, rpe=None,
+                dp_group=None):
         B, C, L = x.shape
         H = self.num_heads
         hd = C // H
@@ -205,20 +206,23 @@ class Attention1D(nn.Module):
                                  f" for scores {tuple(attn.shape)}")
             attn = attn + rpe.to(attn.dtype)
         attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        attn = ops.dropout(attn, generator, self.attn_drop, training)
+        attn = ops.dropout(attn, generator, self.attn_drop, training,
+                           dp_group)
         out = torch.matmul(attn.to(acc), v.to(acc)).to(x.dtype)
         return out.transpose(2, 3).reshape(B, C, L)
 
-    def forward(self, x, training=False, generator=None, rpe=None):
-        return self._attend(x, x, training, generator, rpe)
+    def forward(self, x, training=False, generator=None, rpe=None,
+                dp_group=None):
+        return self._attend(x, x, training, generator, rpe, dp_group)
 
 
 class CrossAttention1D(Attention1D):
     """CrossOSRA: keys and values from ``context`` (x when None)."""
 
-    def forward(self, x, context=None, training=False, generator=None):
+    def forward(self, x, context=None, training=False, generator=None,
+                dp_group=None):
         return self._attend(x, x if context is None else context, training,
-                            generator)
+                            generator, dp_group=dp_group)
 
 
 class MultiScaleDWConv1D(nn.Module):
@@ -263,16 +267,16 @@ class Mlp1D(nn.Module):
             "0": nn.Conv1d(hidden, out_features, 1, bias=False),
             "1": GroupNorm1(out_features)})
 
-    def forward(self, x, training=False, generator=None):
+    def forward(self, x, training=False, generator=None, dp_group=None):
         fc1, fc2, prelu = self.fc1, self.fc2, self.act_name == "prelu"
         x = _act(self.act_name, ops.conv1d_module(x, fc1["0"]),
                  fc1["1"] if prelu else None)
         x = fc1["2"](x)
         x = self.dwconv(x) + x
         x = self.norm(_act(self.act_name, x, self.act if prelu else None))
-        x = ops.dropout(x, generator, self.drop, training)
+        x = ops.dropout(x, generator, self.drop, training, dp_group)
         x = fc2["1"](ops.conv1d_module(x, fc2["0"]))
-        return ops.dropout(x, generator, self.drop, training)
+        return ops.dropout(x, generator, self.drop, training, dp_group)
 
 
 class LayerScale1D(nn.Module):
@@ -319,10 +323,12 @@ class HybridTokenMixer1D(nn.Module):
             "6": nn.Conv1d(inner, dim, 1),
             "7": GroupNorm1(dim, eps=1e-5)})
 
-    def forward(self, x, training=False, generator=None, rpe=None):
+    def forward(self, x, training=False, generator=None, rpe=None,
+                dp_group=None):
         x1, x2 = x.chunk(2, dim=1)
         y = torch.cat([self.local_unit(x1),
-                       self.global_unit(x2, training, generator, rpe)], dim=1)
+                       self.global_unit(x2, training, generator, rpe,
+                                        dp_group)], dim=1)
         p = self.proj
         z = p["2"](ops.gelu(ops.conv1d_module(y, p["0"], padding=1)))
         z = p["5"](ops.gelu(ops.conv1d_module(z, p["3"])))
@@ -351,15 +357,18 @@ class Block1D(nn.Module):
             self.layer_scale_1 = self.layer_scale_2 = None
 
     def forward(self, x, per_utterance=False, training=False, generator=None,
-                rpe=None):
+                rpe=None, dp_group=None):
         """``per_utterance`` is accepted for the GA interface; nothing here
-        mixes the batch's rows."""
+        mixes the batch's rows (``dp_group`` reaches the dropout masks)."""
         x = x + ops.conv1d_module(x, self.pos_embed, padding=3)
-        t = self.token_mixer(self.norm1(x), training, generator, rpe)
+        t = self.token_mixer(self.norm1(x), training, generator, rpe,
+                             dp_group)
         if self.layer_scale_1 is not None:
             t = self.layer_scale_1(t)
-        x = x + ops.drop_path(t, generator, self.drop_path, training)
-        m = self.mlp(self.norm2(x), training, generator)
+        x = x + ops.drop_path(t, generator, self.drop_path, training,
+                              dp_group)
+        m = self.mlp(self.norm2(x), training, generator, dp_group)
         if self.layer_scale_2 is not None:
             m = self.layer_scale_2(m)
-        return x + ops.drop_path(m, generator, self.drop_path, training)
+        return x + ops.drop_path(m, generator, self.drop_path, training,
+                                 dp_group)

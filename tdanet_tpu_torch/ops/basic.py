@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn import init as nn_init
 
+from tdanet_tpu_torch.parallel import collectives
+
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """Accumulation dtype for statistics: at least float32, never below the
@@ -177,34 +179,46 @@ def activation(name, x, prelu_weight=None):
 # ---------------------------------------------------------------------------
 
 
-def _uniform(shape, like, generator: torch.Generator):
+def _uniform(shape, like, generator: torch.Generator, dp_group=None,
+             axis=0):
+    """U[0, 1) of ``shape`` on like's device. Under a data-parallel group
+    ``shape`` is this rank's and ``axis`` its batch axis: the global
+    batch's draw is made and the rank keeps its rows, so every rank's mask
+    is its rows of the one-process mask."""
     if generator is None:
         raise ValueError("training-time dropout and drop-path need a "
                          "torch.Generator")
-    return torch.rand(shape, generator=generator, dtype=acc_dtype(like.dtype),
-                      device=generator.device).to(like.device)
+    u = torch.rand(collectives.global_shape(shape, dp_group, axis),
+                   generator=generator, dtype=acc_dtype(like.dtype),
+                   device=generator.device)
+    return collectives.rank_rows(u, dp_group, axis).to(like.device)
 
 
-def dropout(x, generator: torch.Generator, rate: float, training: bool):
+def dropout(x, generator: torch.Generator, rate: float, training: bool,
+            dp_group=None, axis=0):
     """Zero each element with probability ``rate`` and scale the kept ones
-    by 1 / (1 - rate); the identity at rate 0 or when not training."""
+    by 1 / (1 - rate); the identity at rate 0 or when not training. Under
+    ``dp_group`` the mask is this rank's rows (along ``axis``, the batch
+    axis) of the global batch's."""
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
-    mask = _uniform(x.shape, x, generator) < keep
+    mask = _uniform(x.shape, x, generator, dp_group, axis) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
 
 def drop_path(x, generator: torch.Generator, drop_prob: float,
-              training: bool):
+              training: bool, dp_group=None):
     """Stochastic depth: drop whole samples (axis 0) with probability
-    ``drop_prob`` and scale the kept ones by 1 / (1 - drop_prob)."""
+    ``drop_prob`` and scale the kept ones by 1 / (1 - drop_prob); under
+    ``dp_group`` the global batch's draw, as :func:`dropout`."""
     if drop_prob == 0.0 or not training:
         return x
     keep = 1.0 - drop_prob
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.floor(keep + _uniform(shape, x, generator)).to(x.dtype)
+    mask = torch.floor(keep + _uniform(shape, x, generator,
+                                       dp_group)).to(x.dtype)
     return x / keep * mask
 
 
@@ -282,11 +296,15 @@ def sinusoidal_pe(length: int, channels: int, dtype=torch.float32,
 
 def multi_head_attention(q, k, v, in_proj_weight, in_proj_bias,
                          out_proj_weight, out_proj_bias, num_heads: int, *,
-                         dropout_rate=0.0, generator=None, training=False):
+                         dropout_rate=0.0, generator=None, training=False,
+                         dp_group=None, batch_axis=0):
     """torch multi_head_attention_forward numerics on (L, N, E) inputs.
     Returns (L, N, E); q is scaled by 1/sqrt(head_dim). In training the
-    attention weights are dropped at ``dropout_rate`` with masks drawn from
-    ``generator``."""
+    attention weights, (N * heads, L, S), are dropped at ``dropout_rate``
+    with masks drawn from ``generator``; under ``dp_group`` the mask is
+    this rank's rows, along ``batch_axis`` of the weights, of the global
+    batch's (0: the batch is N; 1: the batch is L, the queries, as in the
+    batch-axis attention whose keys are every rank's rows)."""
     L, N, E = q.shape
     S = k.shape[0]
     hd = E // num_heads
@@ -305,7 +323,7 @@ def multi_head_attention(q, k, v, in_proj_weight, in_proj_bias,
     acc = acc_dtype(q.dtype)
     scores = torch.bmm(qh.to(acc), kh.to(acc).transpose(1, 2))
     attn = dropout(torch.softmax(scores, dim=-1), generator, dropout_rate,
-                   training)
+                   training, dp_group, batch_axis)
     ctx = torch.bmm(attn, vh.to(acc)).to(q.dtype)
     ctx = ctx.transpose(0, 1).reshape(L, N, E)
     return F.linear(ctx, out_proj_weight.to(q.dtype),

@@ -237,6 +237,9 @@ def serve_bench(bundle, refs, tmp):
     _expect(proc.returncode == 0,
             f"serving the bundle failed ({proc.returncode}):\n"
             f"{proc.stderr[-4000:]}")
+    for line in proc.stdout.splitlines():  # each profiled window's count
+        if "profiled window" in line:
+            print(line)
     with np.load(out) as z:
         got = {k: z[k] for k in z.files}
     rec = json.loads(str(got.pop("record")))

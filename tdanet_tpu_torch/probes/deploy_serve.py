@@ -12,8 +12,8 @@ that length, the progressive pair and a streaming program. Each engine is
 loaded, its programs' #1 nodes counted, its first call's wrapper launches
 counted (on the card a program's set-up forward and its capture), and on
 the card a profiled window of graph replays counts #1's device kernels
-per replay (up to three windows: the profiler may drop an event); a
-B-row forward is timed by replay. OUT.npz gets every
+per replay (a short window is read once more: the profiler may drop an
+event; a second short one fails); a B-row forward is timed by replay. OUT.npz gets every
 estimate and a JSON record under ``record``. The run fails if it imported
 ``tdanet_tpu_torch.models``.
 """
@@ -30,12 +30,12 @@ import torch
 
 from tdanet_tpu_torch import deploy
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import dw_conv_glob_ln
-from tdanet_tpu_torch.utils.timing import cuda_time, profile_window
+from tdanet_tpu_torch.utils.timing import (counted_windows, cuda_time,
+                                          profile_window)
 
 # ragged pushes of the streams (samples), as serving's probe pushes them
 RAGGED = (5000, 17000, 3100, 26000, 900, 40000)
 PROFILED_REPLAYS = 3
-PROFILED_WINDOWS = 3
 
 
 def drive_streams(engine, wavs):
@@ -68,21 +68,19 @@ def _launched(fn):
     return out, dw_conv_glob_ln.launches - before
 
 
-def _profiled(graph, nodes):
+def _profiled(graph, nodes, what):
     """#1's device kernels per replay of ``graph``, from a window of
-    PROFILED_REPLAYS replays: the most of up to PROFILED_WINDOWS windows,
-    stopping at ``nodes`` (the profiler may drop an event, a count a
-    little below the true one; it never adds a kernel)."""
+    PROFILED_REPLAYS replays, held to ``nodes`` a replay by
+    ``timing.counted_windows`` (a short window is read once more: the
+    profiler may drop an event; a second short one fails)."""
     def run():
         for _ in range(PROFILED_REPLAYS):
             graph.replay()
-    best = 0.0
-    for _ in range(PROFILED_WINDOWS):
+
+    def read():
         _, dw, _, _, _ = profile_window(run)
-        best = max(best, dw / PROFILED_REPLAYS)
-        if best >= nodes:
-            break
-    return best
+        return dw, nodes * PROFILED_REPLAYS, dw / PROFILED_REPLAYS
+    return counted_windows(read, f"bundle {what} replays")
 
 
 def serve(bundle, inputs, device):
@@ -110,7 +108,7 @@ def serve(bundle, inputs, device):
         graph = dep.programs[target].graph
         ms, runs, _ = cuda_time(graph.replay, reps=5)
         rec["replay_ms"], rec["replay_runs_ms"] = ms, runs
-        rec["profiled"]["T"] = _profiled(graph, rec["nodes"]["T"])
+        rec["profiled"]["T"] = _profiled(graph, rec["nodes"]["T"], "T")
 
     dep8 = deploy.load_bundle(bundle, device=device, num_blocks=8)
     ests, rec["setup_launches"]["E8"] = _launched(
@@ -119,7 +117,7 @@ def serve(bundle, inputs, device):
     rec["nodes"]["E8"] = deploy.op_nodes(dep8.modules[target])
     if cuda:
         rec["profiled"]["E8"] = _profiled(dep8.programs[target].graph,
-                                          rec["nodes"]["E8"])
+                                          rec["nodes"]["E8"], "E8")
     del dep, dep8
 
     prog = deploy.load_progressive(bundle, device=device)
@@ -137,8 +135,10 @@ def serve(bundle, inputs, device):
         rec["escalated"].append(stats["n_escalated"])
     if cuda:
         g1, g2 = prog.graphs[target]
-        rec["profiled"]["P_s1"] = _profiled(g1.graph, rec["nodes"]["P_s1"])
-        rec["profiled"]["P_s2"] = _profiled(g2.graph, rec["nodes"]["P_s2"])
+        rec["profiled"]["P_s1"] = _profiled(g1.graph, rec["nodes"]["P_s1"],
+                                            "P_s1")
+        rec["profiled"]["P_s2"] = _profiled(g2.graph, rec["nodes"]["P_s2"],
+                                            "P_s2")
     del prog
 
     engine, rec["setup_launches"]["S"] = _launched(
@@ -149,7 +149,7 @@ def serve(bundle, inputs, device):
     rec["stream_replays"] = engine.stats["replays"]
     if cuda:
         rec["profiled"]["S"] = _profiled(engine._prog.graph,
-                                         rec["nodes"]["S"])
+                                         rec["nodes"]["S"], "S")
     rec["models_imported"] = "tdanet_tpu_torch.models" in sys.modules
     return out, rec
 

@@ -28,7 +28,7 @@ import torch
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
     dw_conv_glob_ln, dw_conv_glob_ln_reference)
 from tdanet_tpu_torch.utils.timing import (
-    bound_ms, card_line, cuda_time, graph_time)
+    bound_ms, card_line, cuda_time, graph_time, profiled)
 
 SERVED = dict(out_channels=128, in_channels=512, num_blocks=16,
               upsampling_depth=5, enc_kernel_size=4, num_sources=2,
@@ -147,12 +147,9 @@ def profile_forward(model, wav, names=("dw_conv_glob_ln",)):
     (the device rows whose name holds one of ``names``), all device
     kernels and ms, the wall ms with the profiler on, the top rows."""
     import time
-    from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         model(wav)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             t0 = time.perf_counter()
             model(wav)
             torch.cuda.synchronize()

@@ -76,8 +76,8 @@ from tdanet_tpu_torch.serving import (
     StreamingSeparator, pcm16)
 from tdanet_tpu_torch.utils import separate_batched
 from tdanet_tpu_torch.utils.css import stitch_segments
-from tdanet_tpu_torch.utils.timing import (card_line, profile_window,
-                                          snr_db)
+from tdanet_tpu_torch.utils.timing import (card_line, counted_windows,
+                                          profile_window, snr_db)
 
 SR = 16000
 CFG = dict(out_channels=128, in_channels=512, num_blocks=16,
@@ -344,15 +344,18 @@ def drive_serve(model, seed=20):
         server.prewarm()
         record["pool_mib_grid"] = server.pool_bytes() / 2 ** 20
         record["grid_graphs"] = server.stats["graphs"]
-        before = server.stats["replays"]
-        third, dw_kernels, _, _, _ = profile_window(
-            lambda: _answers([server.submit(w) for w in requests]))
-        window = server.stats["replays"] - before
+        # a second burst if the first is short: the profiler may drop an
+        # event from a window (ROADMAP C #8)
+        def burst():
+            before = server.stats["replays"]
+            answers, dw, _, _, _ = profile_window(
+                lambda: _answers([server.submit(w) for w in requests]))
+            window = server.stats["replays"] - before
+            return dw, window * per_forward, (answers, dw, window)
+        third, dw_kernels, window = counted_windows(
+            burst, "the async server's profiled burst")
         record["profiled_replays"] = window
         record["profiled_dw_kernels"] = dw_kernels
-        _expect(dw_kernels == window * per_forward,
-                f"{dw_kernels} dw_conv_glob_ln device kernels in a window "
-                f"of {window} replays, expected {window * per_forward}")
         _expect(min(_snr(w, a) for w, (a, _) in zip(want, third)) >= 60.0,
                 "the profiled burst disagrees with separate_batched")
         server.close()

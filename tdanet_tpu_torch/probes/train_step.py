@@ -35,7 +35,7 @@ from tdanet_tpu_torch.ops import basic
 from tdanet_tpu_torch.system.optimizers import make_optimizer
 from tdanet_tpu_torch.system.trainer import (create_train_state,
                                              make_train_step)
-from tdanet_tpu_torch.utils.timing import card_line, snr_db
+from tdanet_tpu_torch.utils.timing import card_line, profiled, snr_db
 
 RECIPE = dict(out_channels=128, in_channels=512, num_blocks=16,
               upsampling_depth=5, enc_kernel_size=4, num_sources=2,
@@ -384,14 +384,11 @@ def time_steps(B, remat, steps=5, warmup=2, model="TDANetBest",
 def profile_step(B, remat):
     """One profiled step after a warm-up: device kernels, device ms, and
     #1's forward and backward kernels and device ms."""
-    from torch.profiler import ProfilerActivity, profile
     state, step = setup(remat)
     mix, src = tone_batch(B)
     state, loss = step(state, mix, src, torch.Generator().manual_seed(0))
-    torch.cuda.synchronize()
     copies = DwConvGlobLnFunction.dy_copies
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         state, loss = step(state, mix, src,
                            torch.Generator().manual_seed(1))

@@ -25,7 +25,7 @@ from tdanet_tpu_torch.kernels.uconv_block import (
     pyramid_fused_reference, scale_lengths, to_raw)
 from tdanet_tpu_torch.probes.uconv_kernel import C, COUT, DEPTH, T, seeded_block
 from tdanet_tpu_torch.utils.timing import (
-    card_line, cuda_time, graph_time, snr_db)
+    card_line, cuda_time, graph_time, profiled, snr_db)
 
 CASES = ((1, torch.float32), (4, torch.float32), (24, torch.bfloat16))
 NAMES = ("pyramid_fused", "fuse_expand_fused")
@@ -131,14 +131,10 @@ def check(B, dtype, seed, T0=T, depth=DEPTH):
 def profile_call(fn, n=10):
     """Device kernels of n calls: (kernels per call, [(name, launches per
     call, device us per call)], memsets per call)."""
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CUDA]

@@ -73,7 +73,7 @@ from tdanet_tpu_torch.probes.eval_path import (
 from tdanet_tpu_torch.probes.serve_path import BF16, check_bf16_sites
 from tdanet_tpu_torch.utils import read_wav, separate, write_wav
 from tdanet_tpu_torch.utils.timing import (
-    card_line, cuda_time, graph_time, snr_db)
+    card_line, counted_windows, cuda_time, graph_time, profiled, snr_db)
 
 SR = 16000
 C = 512
@@ -231,12 +231,14 @@ def cpu64_snr(model, wav, got):
         time.perf_counter() - t0
 
 
-def profile_graph(model, wav, replays=PROFILED_REPLAYS):
+def profile_graph(model, wav, replays=PROFILED_REPLAYS, want=None):
     """The forward captured in one CUDA graph, ``replays`` replays under
     the profiler: (#1's device kernels, #1's device ms, all device ms,
     all device kernels, the 12 kernels of most device time as (ms,
-    count, name))."""
-    from torch.profiler import ProfilerActivity, profile
+    count, name)). With ``want`` (the #1 kernels the window must hold),
+    the window is held to it by ``timing.counted_windows``: a short
+    window is read once more (the profiler may drop an event, ROADMAP
+    C #8), a second short one fails."""
     with torch.inference_mode():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -249,11 +251,19 @@ def profile_graph(model, wav, replays=PROFILED_REPLAYS):
             model(wav)
         graph.replay()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+    def read():
+        with torch.inference_mode(), profiled() as prof:
             for _ in range(replays):
                 graph.replay()
-            torch.cuda.synchronize()
+        got = _window(prof)
+        return got[0], want, got
+    if want is None:
+        return read()[2]
+    return counted_windows(read, f"{type(model).__name__} graph replays")
+
+
+def _window(prof):
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CUDA]
@@ -355,8 +365,8 @@ def _yang_extras(model, path, sites, tmp):
     if new:
         check_sites(new, C, "TDANetYang graph")
         sites.checked |= new
-    dw, dw_ms, dev_ms, kernels, _ = profile_graph(model, x)
     want = PROFILED_REPLAYS * SITES["TDANetYang"] * CFG["num_blocks"]
+    dw, dw_ms, dev_ms, kernels, _ = profile_graph(model, x, want=want)
     print(f"TDANetYang B=1 {SECONDS} s, {PROFILED_REPLAYS} CUDA-graph "
           f"replays profiled: {dw} dw_conv_glob_ln device kernels (expected "
           f"{want}), {dw_ms:.3f} of {dev_ms:.3f} ms device time "

@@ -32,7 +32,7 @@ from tdanet_tpu_torch.utils.separator import (PREFETCH_BATCHES,
 
 
 def separate_progressive(model, mixes, depth1=8, depth_full=None,
-                         threshold=0.05, batch_size=8):
+                         threshold=0.05, batch_size=8, mesh=None):
     """Adaptive-depth separation of ``mixes`` (N, T), mixtures of one
     length, on the model's device: the stage-1 sweep in batches of
     ``batch_size``, the threshold census, the gather of the escalated rows
@@ -44,7 +44,25 @@ def separate_progressive(model, mixes, depth1=8, depth_full=None,
 
     ``threshold``: escalate the utterances whose delta is above it; 0 or
     below escalates all of them (the full-depth forward, for A/Bs),
-    ``np.inf`` none (the depth-d1 forward)."""
+    ``np.inf`` none (the depth-d1 forward).
+
+    ``mesh`` (a local ``parallel.make_mesh``): dp scale-out, as
+    ``separate_batched`` does it. Every stage-1 and stage-2 batch is padded
+    to ``batch_size`` rows, a multiple of dp; replica i runs its rows on
+    its device; states and estimates are concatenated in row order on the
+    first replica's device, where the escalated rows are gathered."""
+    rows = replicas = None
+    if mesh is not None:
+        from tdanet_tpu_torch.parallel import dp_batch_setup
+        rows, replicas = dp_batch_setup(mesh, batch_size, model)
+    return _progressive(model, mixes, depth1, depth_full, threshold,
+                        batch_size, rows, replicas)
+
+
+def _progressive(model, mixes, depth1, depth_full, threshold, batch_size,
+                 rows=None, replicas=None):
+    """:func:`separate_progressive` on one device, or over ``replicas``
+    (each running its ``rows`` of a batch) when they are given."""
     if not hasattr(model, "forward_stage1"):
         raise TypeError(
             f"progressive separation needs a model with the staged forward "
@@ -63,12 +81,69 @@ def separate_progressive(model, mixes, depth1=8, depth_full=None,
         raise ValueError(f"depth_full ({depth_full}) must exceed "
                          f"depth1 ({depth1})")
     rest = model.pad_rest(T)
+
+    def stage1(rep, xb):
+        return rep.forward_stage1(xb, depth1, per_utterance=True)
+
+    def stage2(rep, st):
+        return rep.forward_stage2(st, n_more, rest, per_utterance=True)
+
+    if replicas is None:
+        return progressive_loop(
+            lambda xb: stage1(model, xb), lambda st: stage2(model, st),
+            mixes, batch_size, threshold, next(model.parameters()).device,
+            depth1=depth1, depth_full=depth_full)
+    home = next(replicas[0].parameters()).device
     return progressive_loop(
-        lambda xb: model.forward_stage1(xb, depth1, per_utterance=True),
-        lambda st: model.forward_stage2(st, n_more, rest,
-                                        per_utterance=True),
-        mixes, batch_size, threshold, next(model.parameters()).device,
-        depth1=depth1, depth_full=depth_full)
+        _split_stage(stage1, replicas, rows, batch_size, home),
+        _split_stage(stage2, replicas, rows, batch_size, home),
+        mixes, batch_size, threshold, home, depth1=depth1,
+        depth_full=depth_full)
+
+
+def _split_stage(stage, replicas, rows, batch_size, home):
+    """A stage over a mesh's replicas: its input (a (rows, T) tensor or a
+    state dict with the batch first) padded to ``batch_size`` rows with
+    copies of the last row, replica i's rows run by ``stage(replica_i,
+    part)`` on its device, the outputs (tensors, or ``(est, state)``)
+    concatenated in row order on ``home`` and cut to the rows given."""
+
+    def pad_rows(t):
+        extra = batch_size - t.shape[0]
+        return torch.cat([t, t[-1:].expand(extra, *t.shape[1:])]) \
+            if extra else t
+
+    def part(v, sl, device):
+        return v[sl].to(device) if torch.is_tensor(v) else v
+
+    def cat(vs, n):
+        if isinstance(vs[0], dict):
+            return {k: cat([v[k] for v in vs], n) for k in vs[0]}
+        if isinstance(vs[0], tuple):
+            return tuple(cat([v[i] for v in vs], n)
+                         for i in range(len(vs[0])))
+        if torch.is_tensor(vs[0]):
+            return torch.cat([v.to(home) for v in vs])[:n]
+        return vs[0]
+
+    def run(inp):
+        if isinstance(inp, dict):
+            n = next(v for v in inp.values() if torch.is_tensor(v)).shape[0]
+            inp = {k: pad_rows(v) if torch.is_tensor(v) else v
+                   for k, v in inp.items()}
+        else:
+            n, inp = inp.shape[0], pad_rows(inp)
+        outs = []
+        for rep, sl in zip(replicas, rows):
+            device = next(rep.parameters()).device
+            if isinstance(inp, dict):
+                outs.append(stage(rep, {k: part(v, sl, device)
+                                        for k, v in inp.items()}))
+            else:
+                outs.append(stage(rep, part(inp, sl, device)))
+        return cat(outs, n)
+
+    return run
 
 
 def progressive_loop(stage1, stage2, mixes, batch_size, threshold, device,
@@ -124,7 +199,8 @@ def progressive_loop(stage1, stage2, mixes, batch_size, threshold, device,
 
 def separate_progressive_stream(model, lengths, get_item, depth1=8,
                                 depth_full=None, threshold=0.05,
-                                batch_size=8, group_size=None, stats=None):
+                                batch_size=8, group_size=None, stats=None,
+                                mesh=None):
     """Adaptive-depth eval stream over variable-length utterances, the
     progressive counterpart of
     :func:`tdanet_tpu_torch.utils.separator.separate_batched_stream`, with
@@ -139,7 +215,12 @@ def separate_progressive_stream(model, lengths, get_item, depth1=8,
 
     ``stats`` (optional dict) is updated in place with the escalation
     census: ``n``, ``n_escalated``, ``delta_sum``, ``delta_mean``,
-    ``depth1``, ``depth_full``."""
+    ``depth1``, ``depth_full``. ``mesh``: dp scale-out, passed to
+    :func:`separate_progressive` (``batch_size`` a multiple of dp)."""
+    rows = replicas = None
+    if mesh is not None:  # one set-up for the whole stream
+        from tdanet_tpu_torch.parallel import dp_batch_setup
+        rows, replicas = dp_batch_setup(mesh, batch_size, model)
     group = group_size or 4 * batch_size
     plan = plan_lattice_buckets(lengths, model.lcm, group)
     if stats is not None:
@@ -156,9 +237,8 @@ def separate_progressive_stream(model, lengths, get_item, depth1=8,
             for row, it in enumerate(items):
                 w = np.asarray(it[0], np.float32)
                 mixes[row, :w.shape[-1]] = w
-            ests, info = separate_progressive(
-                model, mixes, depth1=depth1, depth_full=depth_full,
-                threshold=threshold, batch_size=batch_size)
+            ests, info = _progressive(model, mixes, depth1, depth_full,
+                                      threshold, batch_size, rows, replicas)
             if stats is not None:
                 stats["n"] += len(chunk)
                 stats["n_escalated"] += info["n_escalated"]

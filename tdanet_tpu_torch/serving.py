@@ -26,9 +26,13 @@ Left out of the JAX engines' arguments:
 
 - ``dw_fold``: it picks a TPU lowering of one function,
   ``ops.dw_s2_fold``, which is not ported (ROADMAP "Not to port");
-- ``mesh``: data-parallel serving waits for ``parallel/mesh.py``
-  (ROADMAP A #10);
 - ``params``: the model carries its weights.
+
+``mesh`` (a local ``parallel.make_mesh``: dp replicas on a list of
+devices, which may repeat) splits every batch of ``BatchSeparationServer``
+and ``AsyncBatchServer`` over the replicas: each shape is one
+:class:`ReplicaPrograms`, a :class:`Program` (one CUDA graph on a card) a
+replica, each replica's rows on its device, collected in row order.
 
 ``serving_worker.py`` (worker recycling) and ``scripts/soak_recycle.py``
 are not ported: they answer a host-memory leak of the TPU's client, which
@@ -280,6 +284,68 @@ class Program:
     def stats(self):
         """Forwards replayed from the graph, and the graphs (0 or 1)."""
         return {"replays": self.replays, "graphs": int(self.graph is not None)}
+
+
+class ReplicaPrograms:
+    """One forward shape over dp replicas (one without a mesh):
+    ``fns[i]`` (replica i's forward) as a :class:`Program` of its rows on
+    ``devices[i]``, in that device's pool and capture stream. A batch's
+    rows are split in contiguous parts (``row_slices``); :meth:`launch`
+    queues each part on its device's stream (``streams``, the current
+    stream where None), :meth:`collect` joins the estimates in row order
+    (one part's are returned as they are)."""
+
+    def __init__(self, fns, rows, length, devices, row_slices, pools,
+                 capture_streams, streams, slots=1):
+        self.rows, self.length = rows, length
+        self.row_slices = row_slices
+        self.streams = streams
+        self.parts = [Program(fn, sl.stop - sl.start, length, d,
+                              pool=pools.get(d),
+                              stream=capture_streams.get(d), slots=slots)
+                      for fn, d, sl in zip(fns, devices, row_slices)]
+
+    @property
+    def graph(self):
+        """A captured graph when the parts are graphs, else None."""
+        return self.parts[0].graph
+
+    def launch(self, batch: np.ndarray):
+        if batch.shape != (self.rows, self.length):
+            raise ValueError(f"batch {batch.shape} for a program of "
+                             f"{(self.rows, self.length)}")
+        tickets = []
+        try:
+            for prog, sl in zip(self.parts, self.row_slices):
+                stream = self.streams.get(prog.device)
+                ctx = torch.cuda.stream(stream) if stream is not None \
+                    else contextlib.nullcontext()
+                with ctx:
+                    tickets.append(prog.launch(batch[sl]))
+        except BaseException:  # free the parts already launched
+            for prog, t in zip(self.parts, tickets):
+                prog.collect(t)
+            raise
+        return tickets
+
+    def collect(self, tickets) -> np.ndarray:
+        if len(self.parts) == 1:
+            return self.parts[0].collect(tickets[0])
+        return np.concatenate([prog.collect(t)
+                               for prog, t in zip(self.parts, tickets)])
+
+    def __call__(self, batch: np.ndarray) -> np.ndarray:
+        return self.collect(self.launch(batch))
+
+    @property
+    def replays(self):
+        """Forwards replayed from the parts' graphs, every part's."""
+        return sum(p.replays for p in self.parts)
+
+    @property
+    def stats(self):
+        return {"replays": self.replays,
+                "graphs": sum(p.graph is not None for p in self.parts)}
 
 
 def capture(fn, make_inputs, device, pool=None, stream=None):
@@ -566,17 +632,24 @@ class MultiStreamSeparator:
 
 
 class BatchSeparationServer:
-    """Offline micro-batching over bucketed batched separation."""
+    """Offline micro-batching over bucketed batched separation; ``mesh``
+    splits every batch over a local mesh's replicas (``batch_size`` a
+    multiple of dp), as ``separate_batched`` does."""
 
-    def __init__(self, model, batch_size=8, compute_dtype=None):
+    def __init__(self, model, batch_size=8, compute_dtype=None, mesh=None):
         self.model = model
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
+        self.mesh = mesh
+        if mesh is not None:
+            from tdanet_tpu_torch.parallel.mesh import check_dp_batch
+            check_dp_batch(mesh, batch_size)
 
     def separate(self, wavs):
         return separate_batched(self.model, wavs,
                                 batch_size=self.batch_size,
-                                compute_dtype=self.compute_dtype)
+                                compute_dtype=self.compute_dtype,
+                                mesh=self.mesh)
 
 
 class AsyncBatchServer:
@@ -612,23 +685,37 @@ class AsyncBatchServer:
     ``deadline_ms`` sheds a request older than that when its batch is
     assembled, with ``DeadlineExceeded``.
 
-    The program cache maps (padded length, rows) to a :class:`Program`:
-    a CUDA graph on a CUDA model (all in one pool, replayed on the
-    dispatch thread's stream), the eager forward on a CPU model.
+    The program cache maps (padded length, rows) to a
+    :class:`ReplicaPrograms` of one part a replica (one without a mesh):
+    a CUDA graph on a CUDA model (a device's graphs in one pool, replayed
+    on one stream of the device), the eager forward on a CPU model.
     ``stats`` counts dispatches, rows, the largest batch, the highest
     rung, the programs' graphs and replays, and the background builds that
     failed: such a rung is never grown into (the smaller rung keeps
     serving, from its own graph), and its error stays in
     ``build_errors``, keyed by (padded length, rows).
+
+    ``mesh`` (a local ``parallel.make_mesh``): dp scale-out. ``max_batch``
+    and every rung are multiples of dp; each program has one graph a
+    replica, each replica's rows on its device;
+    ``stats["graphs"]`` and ``stats["replays"]`` count every replica's.
     """
 
     def __init__(self, model, max_batch=8, max_wait_ms=5.0,
                  compute_dtype=None, pipeline_depth=2, num_blocks=None,
                  adaptive=False, min_batch=None, length_buckets=None,
-                 deadline_ms=None):
+                 deadline_ms=None, mesh=None):
         self.model = model
         self.max_batch = max_batch
         self.device = _device(model)
+        self.mesh = mesh
+        if mesh is not None:
+            from tdanet_tpu_torch.parallel import dp_batch_setup
+            _, self._replicas = dp_batch_setup(mesh, max_batch, model,
+                                               what="max_batch")
+            self._devices = list(mesh.devices)
+        else:
+            self._replicas, self._devices = [model], [self.device]
         self.lattice = getattr(model, "lcm", 1)
         # the length axis of the padding ladder: coarse buckets trade
         # bounded padding for full batches and a bounded program set
@@ -645,6 +732,10 @@ class AsyncBatchServer:
         self._slots = max(1, pipeline_depth) + 2
         if adaptive:
             lo = min_batch if min_batch is not None else min(8, max_batch)
+            if mesh is not None and lo % mesh.dp:
+                raise ValueError(
+                    f"min_batch ({lo}) must be a multiple of the mesh dp "
+                    f"axis ({mesh.dp}) for sharded serving")
             ladder, b = [], lo
             while b < max_batch:
                 ladder.append(b)
@@ -661,17 +752,19 @@ class AsyncBatchServer:
                       "build_errors": 0}
         self.build_errors: Dict[tuple, Exception] = {}
         self._targets: Dict[int, None] = {}  # active bucket lengths (LRU)
-        self._fwd_cache: Dict[tuple, Program] = {}   # (target, B)
+        self._fwd_cache: Dict[tuple, ReplicaPrograms] = {}  # (target, B)
         self._cache_lock = threading.Lock()
         self._compile_sched: set = set()     # (target, B) queued/building
         self._compile_q: "queue.Queue" = queue.Queue()
         self._q: "queue.Queue" = queue.Queue()
         self._inflight: "queue.Queue" = queue.Queue(
             maxsize=max(1, pipeline_depth))
-        self._pool = pool_handle(self.device)
-        self._capture = capture_stream(self.device)
-        self._stream = torch.cuda.Stream(self.device) \
-            if self.device.type == "cuda" else None
+        # one graph pool, capture stream and replay stream a device
+        devices = dict.fromkeys(self._devices)
+        self._pools = {d: pool_handle(d) for d in devices}
+        self._captures = {d: capture_stream(d) for d in devices}
+        self._streams = {d: torch.cuda.Stream(d) for d in devices
+                         if d.type == "cuda"}
         self._alive = True
         # serializes submit's alive-check and enqueue against close's
         # alive-flip: a submit racing close could otherwise enqueue after
@@ -726,8 +819,9 @@ class AsyncBatchServer:
                 self._get_fwd(t, B)
 
     def pool_bytes(self):
-        """Bytes of the card's memory the engine's graphs hold."""
-        return pool_bytes(self._pool) if self._pool is not None else 0
+        """Bytes of the cards' memory the engine's graphs hold."""
+        return sum(pool_bytes(p) for p in self._pools.values()
+                   if p is not None)
 
     def close(self):
         with self._submit_lock:
@@ -739,8 +833,8 @@ class AsyncBatchServer:
             self._compile_q.put(None)
             self._compiler.join(timeout=10)
         self._drain_queue(RuntimeError("AsyncBatchServer closed"))
-        if self._stream is not None:
-            self._stream.synchronize()
+        for stream in self._streams.values():
+            stream.synchronize()
 
     def _drain_queue(self, exc):
         while True:
@@ -753,16 +847,23 @@ class AsyncBatchServer:
 
     # -- programs ----------------------------------------------------------
 
-    def _build_fwd(self, target: int, B: int) -> Program:
-        fwd = _model_forward(self.model, self.compute_dtype, self.num_blocks)
-        prog = Program(lambda x: _estimates(fwd(x)), B, target, self.device,
-                       pool=self._pool, stream=self._capture,
-                       slots=self._slots)
+    def _build_fwd(self, target: int, B: int) -> ReplicaPrograms:
+        if self.mesh is None:
+            rows = [slice(0, B)]
+        else:
+            from tdanet_tpu_torch.parallel import batch_sharding
+            rows = batch_sharding(self.mesh, B)
+        fwds = [_model_forward(m, self.compute_dtype, self.num_blocks)
+                for m in self._replicas]
+        prog = ReplicaPrograms(
+            [lambda x, f=f: _estimates(f(x)) for f in fwds], B, target,
+            self._devices, rows, self._pools, self._captures, self._streams,
+            slots=self._slots)
         with self._cache_lock:
-            self.stats["graphs"] += int(prog.graph is not None)
+            self.stats["graphs"] += prog.stats["graphs"]
         return prog
 
-    def _get_fwd(self, target: int, B: int) -> Program:
+    def _get_fwd(self, target: int, B: int) -> ReplicaPrograms:
         """Blocking build: rung 0, prewarm, and the non-adaptive path."""
         key = (target, B)
         with self._cache_lock:
@@ -838,7 +939,10 @@ class AsyncBatchServer:
         return batch
 
     def _run(self):
-        ctx = torch.cuda.stream(self._stream) if self._stream is not None \
+        # the first device's replay stream: a capture on this thread
+        # orders itself after it
+        stream = self._streams.get(self._devices[0])
+        ctx = torch.cuda.stream(stream) if stream is not None \
             else contextlib.nullcontext()
         with torch.inference_mode(), ctx:
             while self._alive:
@@ -972,7 +1076,7 @@ class AsyncBatchServer:
                         _resolve(fut, exc=e)
                     continue
                 if fwd.graph is not None:
-                    self.stats["replays"] += 1
+                    self.stats["replays"] += len(self._replicas)
                 # bounded handoff: blocks while pipeline_depth batches are
                 # in flight, so requests pile up and the next batch
                 # coalesces full at once

@@ -49,7 +49,7 @@ _FACTORIES = {
 }
 
 #: The JAX package's names without a torch.optim class that makes the same
-#: update (ROADMAP A5): the namesake differs (eps placement, a momentum
+#: update (ROADMAP A #9): the namesake differs (eps placement, a momentum
 #: schedule, a rectification term) or torch.optim has none, or the JAX
 #: package maps the name to an analog of another optimizer.
 NOT_PORTED = (

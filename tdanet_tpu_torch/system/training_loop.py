@@ -12,9 +12,15 @@
   (finish the step, checkpoint, exit; a resume starts at the next epoch);
 - ``best_model.pth`` in the reference schema at the end.
 
-The JAX package's multi-process parts (flag exchange across ranks, the
-process-local slice of a global batch) keep their places as one-process
-no-ops, for data parallelism later (ROADMAP A7).
+Under a process mesh (``AudioTrainer(config, mesh=)``, one process a rank,
+as ``launch_multihost`` or torchrun start them) every rank loads the same
+batches in the same order and trains on its slice of each; the step is the
+global batch's (``system/trainer.py``). Host-side decisions are taken by
+every rank in the same iteration: a step failure or a preemption on any
+rank is OR-ed over ranks (``_sync_flags``), so all ranks restore, or stop,
+at the same batch. The validation loss is summed and counted over ranks.
+Rank 0 alone writes checkpoints and the exports and prints; every rank
+restores, after a barrier.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from scipy.signal import resample_poly
 from tdanet_tpu_torch.losses import (PITLossWrapper, pairwise_neg_sisdr,
                                      pairwise_neg_snr)
 from tdanet_tpu_torch.models import base as model_zoo
+from tdanet_tpu_torch.parallel import collectives
 from tdanet_tpu_torch.system.checkpoint import (CheckpointManager,
                                                 export_torch_pth)
 from tdanet_tpu_torch.system.optimizers import (get_learning_rate,
@@ -41,7 +48,8 @@ from tdanet_tpu_torch.system.optimizers import (get_learning_rate,
                                                 set_learning_rate)
 from tdanet_tpu_torch.system.schedulers import make_scheduler
 from tdanet_tpu_torch.system.trainer import (TrainState, create_train_state,
-                                             make_eval_step, make_train_step)
+                                             dp_group_of, make_eval_step,
+                                             make_train_step)
 
 LOSS_TABLE = {
     "pairwise_neg_snr": pairwise_neg_snr,
@@ -79,8 +87,13 @@ def speed_perturb_batch(targets: np.ndarray, rng: np.random.Generator,
 
 def resolve_device(name):
     """The training device: CUDA unless the CPU is asked for; no card
-    raises."""
+    raises. Inside a process group "cuda" is this rank's card,
+    ``cuda:LOCAL_RANK``; a named device (``cuda:0``) is taken as it is."""
     device = torch.device(name or "cuda")
+    if device.type == "cuda" and device.index is None \
+            and torch.distributed.is_initialized():
+        from tdanet_tpu_torch.parallel.mesh import local_rank
+        device = torch.device("cuda", local_rank())
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; set main_args.device=cpu "
                            "(or pass --device cpu) to train on the CPU")
@@ -91,12 +104,13 @@ class AudioTrainer:
     """End-to-end trainer driven by a reference-shaped config dict."""
 
     def __init__(self, config: Dict[str, Any], mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training is not ported yet (ROADMAP A7)")
         self.config = config
         main_args = config.get("main_args", {})
-        self.device = resolve_device(main_args.get("device"))
+        self.mesh = mesh
+        self.group = dp_group_of(mesh)
+        self.rank = mesh.rank if mesh is not None else 0
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(main_args.get("device"))
         self.exp_dir = main_args.get("exp_dir") or os.path.join(
             "Experiments", "checkpoint", config["exp"]["exp_name"])
         os.makedirs(self.exp_dir, exist_ok=True)
@@ -115,7 +129,7 @@ class AudioTrainer:
         dm_cls = getattr(datas, config["datamodule"]["data_name"])
         self.datamodule = dm_cls(**config["datamodule"]["data_config"])
         self.datamodule.setup()
-        self.dp = 1
+        self.dp = mesh.dp if mesh is not None else 1
 
         opt_conf = dict(config["optimizer"])
         optim_name = opt_conf.pop("optim_name", "adam")
@@ -138,16 +152,18 @@ class AudioTrainer:
             torch.bfloat16 if str(config["training"].get("precision", 32))
             in ("16", "bf16", "16-mixed") else None)
         self.train_step = make_train_step(
-            self.model, self.loss["train"], self.optimizer,
+            self.model, self.loss["train"], self.optimizer, mesh=mesh,
             compute_dtype=self.compute_dtype)
-        self.eval_step = make_eval_step(self.model, self.loss["val"])
+        self.eval_step = make_eval_step(self.model, self.loss["val"],
+                                        mesh=mesh)
         self.ckpt = CheckpointManager(self.exp_dir, top_k=3)
         self.history: list[Dict[str, float]] = []
         self.best_model = None
         # wandb logging, offline-capable and optional
         self._wandb = None
         exp = config.get("exp", {})
-        if exp.get("project") and not exp.get("disable_wandb"):
+        if exp.get("project") and not exp.get("disable_wandb") \
+                and self.rank == 0:
             try:
                 import wandb
             except ImportError:
@@ -161,27 +177,49 @@ class AudioTrainer:
                 except Exception as e:  # logging must not stop training
                     print(f"wandb disabled: {type(e).__name__}: {e}")
 
+    # -- ranks -------------------------------------------------------------
+
+    def log(self, *args):
+        """Print on rank 0 only."""
+        if self.rank == 0:
+            print(*args, flush=True)
+
+    def _on_rank0(self, fn, *args):
+        """Run ``fn`` (a file write) on rank 0, then wait for every rank,
+        so that no rank reads a file before it is written."""
+        if self.rank == 0:
+            fn(*args)
+        collectives.barrier(self.group)
+
     # -- loops -------------------------------------------------------------
 
     def _new_state(self, cfg_t):
         return create_train_state(
             self.model, self.optimizer,
             torch.Generator().manual_seed(cfg_t.get("seed", 0)),
-            device=self.device)
+            mesh=self.mesh, device=self.device)
 
     def _device_batch(self, mix, src):
-        """The batch on the device, trimmed to a multiple of dp (1 here)."""
+        """This rank's rows of the batch on the device: the batch trimmed
+        to a multiple of dp, then rows ``pi*B_loc:(pi+1)*B_loc`` of it
+        (every rank loads the same batches in the same order)."""
         B = (mix.shape[0] // self.dp) * self.dp
         if B == 0:
             return None, None
-        return (torch.from_numpy(np.asarray(mix[:B], np.float32))
+        n = B // self.dp
+        rows = slice(self.rank * n, (self.rank + 1) * n)
+        return (torch.from_numpy(np.asarray(mix[rows], np.float32))
                 .to(self.device),
-                torch.from_numpy(np.asarray(src[:B], np.float32))
+                torch.from_numpy(np.asarray(src[rows], np.float32))
                 .to(self.device))
 
     def _sync_flags(self, *flags: bool) -> tuple:
-        """OR-reduce host-side flags across processes: one process here."""
-        return flags
+        """OR each host-side flag over ranks (one all-reduce; the flags
+        themselves on one process). Step failures, preemption and empty
+        epochs are decided by every rank in the same iteration: a rank
+        that broke off, saved or restored alone would leave the others
+        waiting in the next step's collectives."""
+        return collectives.any_rank(flags, self.group)
 
     def _restore_or_reinit(self, cfg_t):
         """Roll back to the last checkpoint after a step failure (a fresh
@@ -196,7 +234,9 @@ class AudioTrainer:
             self.state = self._new_state(cfg_t)
 
     def validate(self, loader) -> float:
-        """Mean eval loss; the losses stay on the device until the mean."""
+        """Mean eval loss over the batches, summed and counted over ranks,
+        so that every rank (and ``ReduceLROnPlateau`` on it) sees the same
+        value; the losses stay on the device until the mean."""
         losses = []
         for mix, src, _ in loader:
             mix, src = self._device_batch(mix, src)
@@ -205,7 +245,12 @@ class AudioTrainer:
             losses.append(self.eval_step(mix, src))
         if not losses:
             return float("inf")
-        return float(torch.stack(losses).mean())
+        total = torch.stack([torch.stack(losses).sum().double(),
+                             torch.tensor(float(len(losses)),
+                                          dtype=torch.float64,
+                                          device=losses[0].device)])
+        total = collectives.all_sum(total, self.group)
+        return float(total[0] / total[1])
 
     def fit(self, resume: bool = False):
         cfg_t = self.config["training"]
@@ -246,9 +291,9 @@ class AudioTrainer:
                 start_epoch = extras.get("epoch", 0) + 1
                 if self.scheduler is not None and "scheduler" in extras:
                     self.scheduler.load_state_dict(extras["scheduler"])
-                print(f"Resumed from step {step}, epoch {start_epoch}")
+                self.log(f"Resumed from step {step}, epoch {start_epoch}")
             except FileNotFoundError:
-                print("No checkpoint found; training from scratch")
+                self.log("No checkpoint found; training from scratch")
 
         train_loader = self.datamodule.train_dataloader()
         val_loader = self.datamodule.val_dataloader()
@@ -279,17 +324,18 @@ class AudioTrainer:
                     raise
                 except Exception as e:  # recovered below, up to a limit
                     step_exc = e
-                    print(f"train step failed ({type(e).__name__}: "
+                    self.log(f"train step failed ({type(e).__name__}: "
                           f"{str(e)[:200]})")
                 failed, preempted = self._sync_flags(
                     step_exc is not None, self._preempted)
                 self._preempted = self._preempted or preempted
                 if failed:
                     failures += 1
-                    print(f"restoring the last checkpoint "
-                          f"[{failures}/{max_failures}]")
+                    self.log(f"restoring the last checkpoint on every rank "
+                             f"[{failures}/{max_failures}]")
                     if failures > max_failures:
-                        raise step_exc
+                        raise step_exc if step_exc is not None else \
+                            RuntimeError("a peer rank's train step failed")
                     self._restore_or_reinit(cfg_t)
                     continue
                 train_losses.append(loss)
@@ -316,8 +362,9 @@ class AudioTrainer:
                 extras = {"epoch": epoch, "val_loss": float("inf")}
                 if self.scheduler is not None:
                     extras["scheduler"] = self.scheduler.state_dict()
-                self.ckpt.save(epoch, self.state, float("inf"), extras)
-                print(f"Preempted: checkpointed epoch {epoch}, exiting "
+                self._on_rank0(self.ckpt.save, epoch, self.state,
+                               float("inf"), extras)
+                self.log(f"Preempted: checkpointed epoch {epoch}, exiting "
                       f"cleanly (resume to continue)")
                 break
 
@@ -325,11 +372,13 @@ class AudioTrainer:
             row = {"epoch": epoch, "train_loss": train_loss,
                    "val_loss": val_loss,
                    "lr": float(get_learning_rate(self.state.optimizer)),
-                   "time_s": time.time() - t0}
+                   # the slowest rank's: every rank's row is the same
+                   "time_s": collectives.all_max(time.time() - t0,
+                                                 self.group)}
             if (epoch + 1) % 10 == 0 and test_loader is not None:
                 row["test_loss"] = self.validate(test_loader)
             self.history.append(row)
-            print(json.dumps(row))
+            self.log(json.dumps(row))
             if self._wandb is not None:
                 self._wandb.log(row, step=epoch)
 
@@ -340,14 +389,15 @@ class AudioTrainer:
             extras = {"epoch": epoch, "val_loss": val_loss}
             if self.scheduler is not None:
                 extras["scheduler"] = self.scheduler.state_dict()
-            self.ckpt.save(epoch, self.state, val_loss, extras)
+            self._on_rank0(self.ckpt.save, epoch, self.state, val_loss,
+                           extras)
 
             if val_loss < best_val:
                 best_val, bad_epochs = val_loss, 0
             else:
                 bad_epochs += 1
                 if bad_epochs >= patience:
-                    print(f"Early stopping at epoch {epoch}")
+                    self.log(f"Early stopping at epoch {epoch}")
                     break
 
         self.ckpt.wait()
@@ -367,6 +417,24 @@ class AudioTrainer:
         except FileNotFoundError:
             best_step = -1
         self.best_model = best.model
+        self._check_ranks_agree()
+        self._on_rank0(self._export, best_step)
+        self.log(f"Exported best_model.pth (step {best_step}) to "
+                 f"{self.exp_dir}")
+
+    def _check_ranks_agree(self):
+        """Under a process mesh: every rank's history must equal rank 0's,
+        row for row (the losses are the global batch's on every rank)."""
+        if self.group is None:
+            return
+        rows = [None] * self.dp
+        torch.distributed.all_gather_object(rows, self.history,
+                                            group=self.group)
+        if any(r != rows[0] for r in rows):
+            raise RuntimeError(f"the ranks' histories differ: {rows}")
+        self.log(f"history rows equal on {self.dp} ranks")
+
+    def _export(self, best_step):
         with open(os.path.join(self.exp_dir, "history.json"), "w") as f:
             json.dump(self.history, f, indent=2)
         with open(os.path.join(self.exp_dir, "best_k_models.json"),
@@ -375,5 +443,3 @@ class AudioTrainer:
                        "kept_steps": self.ckpt.all_best_steps()}, f)
         export_torch_pth(self.best_model,
                          os.path.join(self.exp_dir, "best_model.pth"))
-        print(f"Exported best_model.pth (step {best_step}) to "
-              f"{self.exp_dir}")

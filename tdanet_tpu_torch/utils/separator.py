@@ -5,6 +5,7 @@ output energy to its mixture's over the true region."""
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 
@@ -151,7 +152,8 @@ def _dispatch(model, batch, num_blocks, compute_dtype=None):
     cuda = device.type == "cuda"
     if cuda:
         x = x.pin_memory()
-    with torch.inference_mode():
+    with torch.inference_mode(), (torch.cuda.device(device) if cuda
+                                  else contextlib.nullcontext()):
         x = x.to(device=device, dtype=dtype, non_blocking=cuda)
         est = model(x, per_utterance=True, compute_dtype=compute_dtype,
                     **depth_kw(num_blocks))
@@ -160,14 +162,30 @@ def _dispatch(model, batch, num_blocks, compute_dtype=None):
             return est, None
         host = torch.empty(est.shape, dtype=est.dtype, pin_memory=True)
         host.copy_(est, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
+        event = torch.cuda.Event()
+        event.record()
     return host, event
+
+
+def _dispatch_split(replicas, rows, batch, num_blocks, compute_dtype=None):
+    """:func:`_dispatch` of each replica's rows (``rows[i]``, a slice of
+    the batch, for ``replicas[i]``); returns the list of their results."""
+    return [_dispatch(rep, batch[sl], num_blocks, compute_dtype)
+            for rep, sl in zip(replicas, rows)]
+
+
+def _collect(parts):
+    """The estimates of :func:`_dispatch_split`'s parts, as one numpy
+    array in row order, once each part's copy has landed."""
+    for _, event in parts:
+        if event is not None:
+            event.synchronize()
+    return np.concatenate([host.numpy() for host, _ in parts])
 
 
 def separate_batched_stream(model, lengths, get_item, batch_size=8,
                             lattice=None, num_blocks=None,
-                            compute_dtype=None):
+                            compute_dtype=None, mesh=None):
     """Separate a corpus in lattice-length buckets, ``batch_size``
     utterances a forward, with audio IO and host work overlapping the card.
 
@@ -187,16 +205,25 @@ def separate_batched_stream(model, lengths, get_item, batch_size=8,
     :func:`trim_renorm`; ``item`` is what ``get_item`` returned, whose
     first element is the mixture. ``compute_dtype`` (e.g.
     torch.bfloat16) is the forward's activation dtype, as
-    ``TDANetBest.forward`` takes it; bf16 estimates come back as float32."""
+    ``TDANetBest.forward`` takes it; bf16 estimates come back as float32.
+
+    ``mesh`` (a local ``parallel.make_mesh``): dp scale-out. Every batch
+    is padded to a full ``batch_size`` rows, a multiple of dp, and replica
+    i separates rows ``i * batch_size / dp`` onwards with the model on its
+    device (``parallel.dp_batch_setup``); the estimates come back in row
+    order."""
     lattice = lattice or getattr(model, "lcm", 1)
+    if mesh is not None:
+        from tdanet_tpu_torch.parallel import dp_batch_setup
+        rows, replicas = dp_batch_setup(mesh, batch_size, model)
+    else:
+        rows, replicas = [slice(None)], [model]
     plan = plan_lattice_buckets(lengths, lattice, batch_size)
     q, close = start_prefetch_reader(plan, get_item,
                                      PREFETCH_BATCHES * batch_size)
 
-    def materialize(chunk, items, host, event):
-        if event is not None:
-            event.synchronize()
-        est = host.numpy()
+    def materialize(chunk, items, parts):
+        est = _collect(parts)
         for row, i in enumerate(chunk):
             mix = np.asarray(items[row][0], np.float32)
             yield i, items[row], trim_renorm(mix, est[row])
@@ -205,14 +232,16 @@ def separate_batched_stream(model, lengths, get_item, batch_size=8,
         pending = None
         for target, chunk in plan:
             items = [take_item(q) for _ in chunk]
-            batch = np.zeros((len(chunk), target), np.float32)
+            n_rows = batch_size if mesh is not None else len(chunk)
+            batch = np.zeros((n_rows, target), np.float32)
             for row, it in enumerate(items):
                 w = np.asarray(it[0], np.float32)
                 batch[row, :w.shape[-1]] = w
-            result = _dispatch(model, batch, num_blocks, compute_dtype)
+            parts = _dispatch_split(replicas, rows, batch, num_blocks,
+                                    compute_dtype)
             if pending is not None:
                 yield from materialize(*pending)
-            pending = (chunk, items, *result)
+            pending = (chunk, items, parts)
         if pending is not None:
             yield from materialize(*pending)
     finally:
@@ -220,19 +249,20 @@ def separate_batched_stream(model, lengths, get_item, batch_size=8,
 
 
 def separate_batched(model, wavs, batch_size=8, lattice=None,
-                     num_blocks=None, compute_dtype=None):
+                     num_blocks=None, compute_dtype=None, mesh=None):
     """Separate variable-length utterances in lattice-length buckets,
     ``batch_size`` at a time (:func:`separate_batched_stream`). Every row
     is separated as if alone (the per-utterance attention collapse), so
     results do not depend on which utterances share a batch. Returns numpy
     (n_src, T_i) estimates in input order, in the model's dtype (bf16
     upcast to float32, as in :func:`separate`), or in ``compute_dtype``
-    when it is given."""
+    when it is given. ``mesh``: dp scale-out over a local mesh's replicas,
+    as :func:`separate_batched_stream` does it."""
     wavs = [np.asarray(w, np.float32) for w in wavs]
     outputs = [None] * len(wavs)
     for i, _, est in separate_batched_stream(
             model, [w.shape[-1] for w in wavs], lambda i: (wavs[i],),
             batch_size, lattice, num_blocks=num_blocks,
-            compute_dtype=compute_dtype):
+            compute_dtype=compute_dtype, mesh=mesh):
         outputs[i] = est
     return outputs

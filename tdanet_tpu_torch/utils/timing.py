@@ -4,6 +4,7 @@ and SNR."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 import statistics
 import subprocess
@@ -69,13 +70,34 @@ def graph_time(fn, reps=50, runs=7):
     return med / reps, [t / reps for t in times], [t / reps for t in flagged]
 
 
-def profile_window(fn):
-    """Run ``fn`` under the profiler: (its return, #1's device kernels,
-    all device events' count and ms, the wall ms)."""
+# Idle host seconds at each end of a profiled window. The profiler keeps
+# only the device activity that its clock places inside the window, and
+# the device's timestamps, converted to the host's clock, can put the
+# first or last kernels of work that starts or ends at the window's edge
+# just outside it (ROADMAP C #8: 2 ms early in one window of 30 on an
+# NVIDIA H100 80GB HBM3, 700.00 W).
+WINDOW_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def profiled(pad_s=WINDOW_PAD_S):
+    """A profiler window (CPU and CUDA activity) whose work inside starts
+    ``pad_s`` after the window opens, and which closes ``pad_s`` after the
+    device has finished it. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+
+
+def profile_window(fn):
+    """Run ``fn`` under the profiler: (its return, #1's device kernels,
+    all device events' count and ms, the wall ms)."""
+    with profiled() as prof:
         t0 = time.perf_counter()
         ret = fn()
         torch.cuda.synchronize()
@@ -86,6 +108,31 @@ def profile_window(fn):
     dw = sum(e.count for e in events if "dw_conv_glob_ln" in e.key)
     return (ret, dw, sum(e.count for e in events),
             sum(e.self_device_time_total for e in events) / 1e3, wall)
+
+
+def counted_windows(read, what, first=None):
+    """Profiled windows until one holds exactly the #1 device kernels it
+    should: ``read()`` profiles one window and returns (#1 kernels
+    counted, kernels expected, record); ``first``, a window already read.
+    A window can only lose events (ROADMAP C #8; :func:`profiled` pads
+    its ends against the known cause), so a short window is read again
+    once; a second short window, or a count above the expected one,
+    fails. Every window's count is printed.
+    Returns the matching window's record."""
+    counts, got = [], first if first is not None else read()
+    while True:
+        n, want, record = got
+        counts.append(n)
+        if n == want or n > want or len(counts) == 2:
+            break
+        got = read()
+    print(f"  {what}: #1 device kernels a profiled window {counts} "
+          f"(expected {want})")
+    if n != want:
+        raise AssertionError(f"{what}: #1 device kernels {counts} in "
+                             f"{len(counts)} profiled windows, expected "
+                             f"{want}")
+    return record
 
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet,

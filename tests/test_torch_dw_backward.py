@@ -74,7 +74,7 @@ class Plan(NamedTuple):
     segs: int       # channel tiles one CTA's run touches, at most
     smem: int       # dynamic shared memory of the launch, bytes
     kept: int       # tiles kept from phase 1 to phase 2, all CTAs
-    cparts: int     # floats of the per-(CTA, channel tile) sums
+    cparts: int     # values (doubles) of the per-(CTA, channel tile) sums
 
     def run(self, j):
         """CTA j's tiles [lo, hi)."""

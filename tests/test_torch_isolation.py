@@ -51,3 +51,20 @@ def test_no_module_of_the_port_imports_jax_or_yaml():
                     continue
                 found += [(path, n) for n in names if _forbidden(n)]
     assert not found, found
+
+
+def test_the_walk_covers_the_parallel_modules_and_the_launcher():
+    """The two checks above reach the data-parallel modules: both walk
+    every module of the package, these among them."""
+    import pkgutil
+
+    import tdanet_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                    "tdanet_tpu_torch.")}
+    assert {"tdanet_tpu_torch.parallel", "tdanet_tpu_torch.parallel.mesh",
+            "tdanet_tpu_torch.parallel.collectives",
+            "tdanet_tpu_torch.launch_multihost"} <= names
+    walked = {os.path.relpath(os.path.join(r, f), PKG)
+              for r, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")}
+    assert {"parallel/mesh.py", "parallel/collectives.py",
+            "launch_multihost.py"} <= walked

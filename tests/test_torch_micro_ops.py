@@ -27,6 +27,17 @@ B, R, C = 2, 600, 64
 RD = 296
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: parallel test workers would otherwise
+    oversubscribe the cores (each op's parallel region waiting for threads
+    the other workers hold)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _operands(seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, R, C)).astype(np.float32)

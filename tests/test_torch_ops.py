@@ -15,6 +15,17 @@ from tdanet_tpu import ops as jops  # noqa: E402
 RTOL = 1e-12
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: parallel test workers would otherwise
+    oversubscribe the cores (each op's parallel region waiting for threads
+    the other workers hold)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

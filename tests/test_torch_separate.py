@@ -23,6 +23,17 @@ CFG = dict(out_channels=64, in_channels=128, num_blocks=2,
            sample_rate=16000)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: parallel test workers would otherwise
+    oversubscribe the cores (each op's parallel region waiting for threads
+    the other workers hold)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
     """(JAX model, JAX params, path of the .pth JAX exported)."""

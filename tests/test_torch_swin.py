@@ -23,6 +23,17 @@ from torch_port_helpers import perturb_flat  # noqa: E402
 OUT_TOL, GRAD_TOL = 1e-10, 1e-9
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: parallel test workers would otherwise
+    oversubscribe the cores (each op's parallel region waiting for threads
+    the other workers hold)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(name, *args, seed=0, **kw):
     """(JAX module, its perturbed float64 params as a pytree, the port's
     module in float64 with the same params loaded, the flat params)."""

@@ -33,6 +33,17 @@ B, COUT, C = 2, 64, 128
 CASES = [(402, 5), (201, 4)]  # the JAX suite's (T, depth)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: parallel test workers would otherwise
+    oversubscribe the cores (each op's parallel region waiting for threads
+    the other workers hold)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_pair(depth, seed):
     """(JAX block, JAX f32 params, port block fp32) on the same perturbed
     weights."""

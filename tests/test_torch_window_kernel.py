@@ -22,6 +22,17 @@ SHAPES = [((2, 16, 16, 32), 4), ((2, 14, 21, 96), 7)]
 SHIFTS = [0, 2]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: parallel test workers would otherwise
+    oversubscribe the cores (each op's parallel region waiting for threads
+    the other workers hold)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _x(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape) \
         .astype(np.float32)

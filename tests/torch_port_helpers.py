@@ -122,3 +122,45 @@ def check_era_forward(name, seed):
         got = model(torch.from_numpy(x)).numpy()
     assert got.shape == (2, 2, ERA_T)
     assert_close64(got, want)
+
+
+# -- data-parallel ranks ----------------------------------------------------
+
+def run_ranks(argvs, timeout=240, env=None):
+    """Start one subprocess a rank (``argvs[r]`` after the interpreter), on
+    one torch thread each, wait for all of them and return their outputs.
+    A rank that outlives ``timeout`` seconds is killed with the others and
+    fails the test, so a hang cannot eat the run's time; a rank that exits
+    with an error fails it with every rank's output."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ if env is None else env, OMP_NUM_THREADS="1",
+               PYTHONPATH=repo)
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=repo, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        outs = [p.communicate()[0] for p in procs]
+        raise AssertionError("a rank timed out:\n" + "\n".join(
+            f"-- rank {r}:\n{o[-2000:]}" for r, o in enumerate(outs)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n" \
+            + "\n".join(f"-- rank {i}:\n{o[-3000:]}"
+                        for i, o in enumerate(outs))
+    return outs
