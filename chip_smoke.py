@@ -6,10 +6,13 @@ Phases, each ending in torch.cuda.synchronize(); any failure raises and the
 exit code is not 0:
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off for convolutions and matrix products;
-  2. build the CUDA kernels from tdanet_tpu_torch/csrc; print the
-     registers of every kernel, and the occupancy figure and the grid of
-     dw_conv_glob_ln's cooperative launch at each site shape; print the
-     backward kernel's plan at the recipe's K5 stride-1 sites (grid,
+  2. build the CUDA kernels from tdanet_tpu_torch/csrc and, beside them,
+     the native batch loader from tdanet_tpu_torch/native/loader.cc (g++),
+     and meanwhile count the MACs audio_train prints for the configs of
+     phases 16 and 23;
+     print the registers of every kernel, and the occupancy figure and
+     the grid of dw_conv_glob_ln's cooperative launch at each site shape;
+     print the backward kernel's plan at the recipe's K5 stride-1 sites (grid,
      slots, shared memory, the planned share of tiles staged again);
   3. dw_conv_glob_ln against its plain PyTorch version at every main-path
      site shape, B 1 and 4, in the model's (B, C, T) layout and in
@@ -72,31 +75,44 @@ exit code is not 0:
      bf16-rounded values) and fp32 at B 2 (max abs <= 1e-4 max abs of
      plain); a rerun equal bit for bit and a CUDA-graph replay equal to
      eager (probes/dw_backward.py);
-  15. gradients of the recipe's model at full width (out 128, in 512, 16
-     blocks, depth 5, 4 ms, 8 kHz, 2 sources, seeded weights), B 2, 1 s,
+  15. gradients of the recipe's model at full width (out 128, in 512,
+     depth 5, 4 ms, 8 kHz, 2 sources, seeded weights) and 4 of its 16
+     blocks (a cut for the time limit: the CPU float64 step), B 2, 1 s,
      fp32, stochastic layers off, PIT neg-SNR: every parameter's gradient
      against the same model in float64 on the CPU through the plain path,
      taken at the card step's side of every activation kink (SNR >= 50
-     dB); #1's launches per step exactly 512 forward / 464
-     backward without checkpointing and 1024 / 464 with it (the coarsest
-     LA fusion's 3 sites a block never reach the loss); with dropout on,
-     the gradients with and without checkpointing agree (SNR >= 60 dB);
-  16. the training CLI, with the launch counts set to 0 just before:
-     synthetic tone-plus-noise data (16 train, 8 validation utterances of
-     3.5 s at 8 kHz) written with the port's write_wav, configs/tdanet.yml
-     read by the port's parser with overrides (data dirs, 2 epochs, an
-     experiment dir under a temp dir), tdanet_tpu_torch.audio_train.main
-     at full width, B 8, 3 s, bf16, per-iteration checkpointing; the
-     history, best_model.pth (from_pretrain gives the trained best model's
-     forward) and a resume that runs one more epoch; then 20 steps on one
-     fixed batch, whose last loss must be below the first;
+     dB); #1's launches per step exactly 128 forward / 116
+     backward without checkpointing, 256 / 116 with full checkpointing
+     and 232 / 116 under remat "scales" (the coarsest LA fusion's 3 sites
+     a block never reach the loss: "scales" skips them, and recomputes
+     each live site once); with dropout on, the gradients under full
+     checkpointing and under "scales" agree with those without (SNR >= 60
+     dB);
+  16. the training CLI from a corpus on disk, with the launch counts set
+     to 0 just before: synthetic tone-plus-noise data (16 train, 8
+     validation utterances of 3.5 s at 8 kHz) written with the port's
+     write_wav as a LibriMix tree ({split}/{mix_clean,s1,s2}/*.wav), its
+     manifests built by the port's preprocess_dataset (held row for row),
+     configs/tdanet.yml read by the port's parser with overrides (the
+     manifest dirs, 2 epochs, an experiment dir under a temp dir),
+     tdanet_tpu_torch.audio_train.main at full width, B 8, 3 s, bf16,
+     remat "scales" (the trainer's default), every batch from the native
+     loader; #1's launches over the run exact (928 / 464 a step, 512 a
+     validation batch); the batches the native loader delivered counted
+     and each held bit for bit against the loader's draws in plain Python
+     (native_loader.plain_batches); the history, best_model.pth
+     (from_pretrain gives the trained best model's forward) and a resume
+     that runs one more epoch; then 20 steps on one fixed batch, whose
+     last loss must be below the first;
   17. times: the backward kernel against its plain version at the finest
      site (B 8 bf16, B 2 fp32) and at each of the 14 site shapes a step
      runs (us, GB/s, share of the bound, planned share staged twice), summed
-     over a step's 464 launches, beside the bound; the train step (median
-     of 5 after 2 warm-up steps) and its peak allocated memory with and
-     without checkpointing; one profiled step (probes/train_step.py),
-     with the copies of dy the autograd Function made in it.
+     over a step's 464 launches, beside the bound; the train step under
+     each checkpoint policy, none, full and "scales"
+     (probes/train_remat.py): the median of 5 after 2 warm-up steps, its
+     peak allocated memory, #1's launches a step held exact, and one
+     profiled step (device ms, device kernels, #1's kernels held to the
+     launches), with the copies of dy the autograd Function made in it.
   18. the corpus eval (probes/eval_path.py) on phase 16's trained
      best_model.pth: 24 synthetic utterances of 2.4-6 s from three cells of
      the stride lattice (11, 8, 5); first #1 against plain at every site
@@ -110,8 +126,9 @@ exit code is not 0:
      against the stream, at inf against depth 8, and at the median each
      utterance against the stream (escalated) or depth 8 (>= 60 dB); #1's
      launches exactly 32 x the block iterations of each run's batches; the
-     longest utterance against CPU float64 (>= 60 dB, SI-SNRi within
-     0.01 dB); wall times, realtime factors, the stream's time split and
+     shortest utterance against CPU float64 (>= 60 dB, SI-SNRi within
+     0.01 dB; the longest's 23 s of CPU cut for the time limit); wall
+     times, realtime factors, the stream's time split and
      the progressive census printed;
   19. long-form CSS: #1 against plain at every site of a 4 s segment at
      1-8 rows; tdanet_tpu_torch.audio_test_css.main on two recordings of
@@ -120,9 +137,9 @@ exit code is not 0:
      every stream of its input's length, each run's #1 sites among those
      checked, #1's launches
      exactly 32 x the block iterations of the batches of 8 segments (stage
-     2's from the escalations stage 1's deltas predict), the first 4 of
+     2's from the escalations stage 1's deltas predict), the first 2 of
      the 10 segments of the plain run's 30 s recording against float64
-     stitching on the CPU (the same swap decisions, >= 60 dB; the other 6
+     stitching on the CPU (the same swap decision, >= 60 dB; the other 8
      cut for the time limit), the plain run against stitching of its segments
      separated again on the card (>= 100 dB) and the progressive run
      against stitching of its segments at full depth where escalated, else
@@ -159,21 +176,23 @@ exit code is not 0:
      against plain first (phase 3's limit), then ``separate`` on a 2 s
      clip through #1, its sites recorded and all checked, #1's launches
      exactly 17 x 16 a forward (13 x 16 for TDANetULayerNum), the output
-     against the card's plain path >= 60 dB, TDANetYang's and
-     TDANetOrigin's also against float64 on the CPU >= 60 dB (the other
-     nine classes' CPU forwards are cut for the time limit); TDANetYang
-     also at B=2 without per_utterance, through the inference CLI, and in
+     against the card's plain path >= 60 dB (the classes' B=1 CPU
+     float64 forwards are cut for the time limit); TDANetYang also at
+     B=2 without per_utterance against float64 on the CPU >= 60 dB,
+     through the inference CLI, and in
      a profiled window of graph replays (#1's device kernels 272 a
      replay);
   23. the family's training: audio_train on configs/tdanet_origin.yml
-     (TDANetOrigin, B 8, 3 s, bf16, checkpointing) on phase 16's data, 2
+     (TDANetOrigin, B 8, 3 s, bf16, remat "scales") on phase 16's data, 2
      epochs and a resume, #1's forward and backward launches exact over
-     the run and per step (544, 272); TDANetYang's gradients (B 2, 1 s,
+     the run and per step (544, 272: the inject block's fusions hold no
+     site, so "scales" recomputes every site once, as full checkpointing
+     does); TDANetYang's gradients at 4 of its 16 blocks (B 2, 1 s,
      fp32) against CPU float64 at the card's kinks >= 50 dB, launches per
-     step exact with and without checkpointing; times: TDANetYang's
+     step exact under each checkpoint policy; times: TDANetYang's
      forward (B 1, 2 s, fp32) eager and replayed with #1's share of
-     device time, the train step (B 8, 3 s, bf16) of TDANetOrigin with
-     checkpointing and TDANetYang without, as audio_train builds each;
+     device time, the train step (B 8, 3 s, bf16) of TDANetOrigin under
+     remat "scales" and TDANetYang without, as audio_train builds each;
      every site the phase launched #1 at (training, validation,
      gradients, timed runs) recorded and held against plain, forward and
      backward.
@@ -184,21 +203,23 @@ exit code is not 0:
      (with their channels and eps) found on the plain path and held
      against plain first, then ``separate`` on a 2 s clip through #1,
      #1's launches exactly the class's sites x 16 a forward (22 x 16 for
-     TDANetEMCADv1_6); TDANetEMCADv1_6 against float64 on the CPU at 16
-     blocks (>= 90 dB), the other 21 at 2 blocks (the same .pth) against
+     TDANetEMCADv1_6); TDANetEMCADv1_6 against float64 on the CPU at 4
+     of its 16 blocks (>= 90 dB; the 16-block CPU forward cut for the time
+     limit), the other 21 at 2 blocks (the same .pth) against
      the card's plain path (>= 60 dB; no CPU float64 reference, for the
      script's time limit);
      TDANetEMCADv1_6's forward eager and replayed, and a profiled window
      of replays (#1's device kernels 352 a replay, its share, the top
      kernels);
   25. the EMCAD-era family's training: TDANetEMCADv1_6's gradients at the
-     recipe's widths (B 2, 1 s, fp32) against CPU float64 at the card's
-     kinks >= 50 dB, launches per step exact with and without
-     checkpointing; #1 at every site's own operands of that step against
-     float64, within 6 dB of its plain version; audio_train on
+     recipe's widths and 4 of its 16 blocks (B 2, 1 s, fp32) against CPU
+     float64 at the card's kinks >= 50 dB, launches per step exact under
+     each checkpoint policy; #1 at every site's own operands of that step
+     against float64, within 6 dB of its plain version; audio_train on
      configs/tdanet.yml with the model swapped (a config in the temp dir
      with feat_len for 3 s) on phase 16's data, 2 epochs and a resume,
-     #1's forward and backward launches exact over the run; the train
+     #1's forward and backward launches exact over the run (the era block
+     has no landmark stages, so "scales" checkpoints it whole); the train
      step (B 8, 3 s, bf16, checkpointing) timed with its peak memory and
      launches; every site the phase launched #1 at held against plain,
      forward and backward, at its channels and eps.
@@ -211,8 +232,9 @@ exit code is not 0:
      and 2 blocks; phase 16's model at every length of phase 18's corpus.
      The bench bundle served in a fresh interpreter that must not import
      tdanet_tpu_torch.models (probes/deploy_serve.py): 8 utterances of 2 s
-     against separate_batched on the model (>= 60 dB) and the first
-     against CPU float64 (>= 60 dB); E8 against separate_batched at depth
+     against separate_batched on the model (>= 60 dB; the model itself
+     is held against CPU float64 in phase 5); E8 against separate_batched
+     at depth
      8, the progressive pair at thresholds 0, inf and the median delta
      against separate_progressive (and its census), load_streaming on 4
      streams against the model's MultiStreamSeparator (>= 60 dB, each of
@@ -245,9 +267,11 @@ exit code is not 0:
      drawn per rank) below both, each rank's step ms beside the
      one-process step's; (c)
      launch_multihost --nprocs 2 -- audio_train on configs/tdanet.yml
-     (global B 8, bf16, checkpointing) over phase 16's utterances, one
-     epoch: both ranks' history rows equal, one best_model.pth whose
-     forward equals rank 0's best checkpoint's (1e-6 of max abs); (d)
+     (global B 8, bf16, remat "scales") over phase 16's utterances, one
+     epoch: both ranks' history rows equal, #1's launches on each rank
+     exact (928 / 464 a step, 512 a validation batch), one best_model.pth
+     whose forward equals rank 0's best checkpoint's (1e-6 of max abs);
+     (d)
      audio_test --dp 2 over [cuda:0, cuda:0] on phase 18's corpus
      against --dp 1 (every metric within 0.01 dB, #1's launches twice),
      and AsyncBatchServer(mesh=...) on 12 requests of 1-4 s against the
@@ -259,6 +283,7 @@ at once in phase 2. The last two lines are the kernels' JSON record and
 the result line.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -272,6 +297,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from tdanet_tpu_torch.datas import native_loader, preprocess_dataset
+from tdanet_tpu_torch.datas.native_loader import NativeLoader, plain_batches
 from tdanet_tpu_torch.kernels import _build, micro_ops
 from tdanet_tpu_torch.kernels.dw_conv_glob_ln import (
     dw_conv_glob_ln, dw_conv_glob_ln_chunked,
@@ -286,8 +313,8 @@ from tdanet_tpu_torch.models import (
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
     deploy_path, dp_path, dw_backward, dw_sites, era, eval_path, hybrid,
-    mosaic_ops, mosaic_ops2, serve_path, train_step, uconv_halves,
-    uconv_kernel, variants)
+    mosaic_ops, mosaic_ops2, serve_path, train_remat, train_step,
+    uconv_halves, uconv_kernel, variants)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.probes.train_step import tone_mix
 from tdanet_tpu_torch.utils import separate, separate_batched
@@ -299,6 +326,7 @@ CFG = dict(out_channels=128, in_channels=512, num_blocks=16,
            upsampling_depth=5, enc_kernel_size=4, num_sources=2,
            sample_rate=16000)
 SITES_PER_BLOCK = 32  # 5 pyramid stages + 5 LA x 3 + 4 LA x 3
+DEAD_PER_BLOCK = 3    # the coarsest LA fusion's sites: no backward
 C = 512
 REQUEST_SECONDS = (1.0, 2.0, 2.7)
 SOURCES = ("dw_conv_glob_ln", "dw_conv_glob_ln_backward", "uconv_pyramid",
@@ -317,10 +345,39 @@ SWIN_BATCH = 2
 RECIPE = train_step.RECIPE
 TRAIN_UTTERANCES, VALID_UTTERANCES = 16, 8  # 2 and 1 batches of 8
 FIXED_STEPS = 20
-TRAIN_BATCH = 8  # the recipe's batch, timed with and without checkpointing
+TRAIN_BATCH = 8  # the recipe's batch, timed under each checkpoint policy
+# phase 15's depth: the CPU float64 step of 16 blocks took 46-73 s, so it
+# runs 4 (the sites a block are the same; phases 16 and 17 hold the
+# 16-block step's launches)
+GRAD_BLOCKS = 4
 
 
 T_START = time.perf_counter()
+
+
+def count_training_macs():
+    """audio_train's parameter and MAC line for the configs phases 16 and
+    23 train, while phase 2's builds run: audio_train keeps each count by
+    model and config, so those runs find it made."""
+    from tdanet_tpu_torch import audio_train, models
+    from tdanet_tpu_torch.utils.parser import parse_config
+    t0 = time.perf_counter()
+    for conf in ("configs/tdanet.yml", variants.TRAIN_CONF):
+        config = parse_config(["--conf_dir", conf])
+        net = config["audionet"]
+        model = models.get(net["audionet_name"])(
+            sample_rate=config["datamodule"]["data_config"]["sample_rate"],
+            **net["audionet_config"])
+        print(f"  {conf}: {audio_train.model_size(model, config)}")
+    print(f"  MACs counted in {time.perf_counter() - t0:.1f} s of host time "
+          f"while the sources build")
+
+
+def build_loader():
+    """The native batch loader's library: (path, g++ seconds)."""
+    t0 = time.perf_counter()
+    so = native_loader.build_library()
+    return so, time.perf_counter() - t0
 
 
 def phase(name):
@@ -808,29 +865,131 @@ def print_backward_plans():
 
 
 def drive_gradients():
-    """Phase 15: the full-width recipe model's gradients on the card
-    against float64 on the CPU, #1's launches per step, and checkpointed
-    gradients with dropout on. Returns the lowest SNR."""
-    model = TDANetBest(**RECIPE)
+    """Phase 15: the recipe model's gradients at full width and
+    ``GRAD_BLOCKS`` blocks on the card against float64 on the CPU, #1's
+    launches per step under each checkpoint policy, and checkpointed
+    gradients (full and "scales") with dropout on. Returns the lowest
+    SNR."""
+    model = TDANetBest(**dict(RECIPE, num_blocks=GRAD_BLOCKS))
     model.reset_parameters(torch.Generator().manual_seed(77))
     # the coarsest scale's LA fusion (loc_glo_fus[depth - 1], 3 sites a
     # block) never reaches the loss: the expansion pairs the finer scales
     # (the reference's quirk), so autograd runs no backward there
     return train_step.check_gradients(
-        model, SITES_PER_BLOCK * RECIPE["num_blocks"],
-        dead=3 * RECIPE["num_blocks"], seed=3)[0]
+        model, SITES_PER_BLOCK * GRAD_BLOCKS,
+        dead=DEAD_PER_BLOCK * GRAD_BLOCKS, seed=3)[0]
+
+
+# phase 16's corpus: (LibriMix split, utterances, seed)
+CORPUS_SPLITS = (("train-100", TRAIN_UTTERANCES, 0),
+                 ("dev", VALID_UTTERANCES, 1))
+
+
+def write_corpus(tmp):
+    """Phase 16's utterances as a LibriMix tree on disk,
+    ``tmp/corpus/{split}/{mix_clean,s1,s2}/utt{i}.wav``, and their
+    manifests built by the port's ``preprocess_dataset`` under
+    ``tmp/manifests``. Returns the train and validation manifest dirs."""
+    corpus = os.path.join(tmp, "corpus")
+    manifests = os.path.join(tmp, "manifests")
+    for split, n, seed in CORPUS_SPLITS:
+        train_step.write_split(os.path.join(corpus, split), n, seed=seed,
+                               manifests=False)
+    t0 = time.perf_counter()
+    preprocess_dataset(corpus, manifests, "librimix")
+    dirs = []
+    for split, n, _ in CORPUS_SPLITS:
+        d = os.path.join(manifests, split)
+        for key in ("mix_clean", "s1", "s2"):
+            with open(os.path.join(d, f"{key}.json")) as f:
+                rows = json.load(f)
+            # every wav in file-name order, with its frames
+            want = [[os.path.join(os.path.abspath(corpus), split, key,
+                                  name), int(3.5 * 8000)]
+                    for name in sorted(f"utt{i}.wav" for i in range(n))]
+            if rows != want:
+                raise AssertionError(f"the {split}/{key} manifest lists "
+                                     f"{rows[:2]}..., expected {want[:2]}...")
+        dirs.append(d)
+    print(f"preprocess_dataset: manifests of {len(CORPUS_SPLITS)} splits x 3 "
+          f"channels ({sum(n for _, n, _ in CORPUS_SPLITS)} utterances) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return tuple(dirs)
+
+
+@contextlib.contextmanager
+def recorded_batches():
+    """Inside, every batch a NativeLoader yields is recorded beside its
+    loader's draws: (dataset, batch size, shuffle, seed, epoch, index,
+    mixtures, sources)."""
+    seen, real = [], NativeLoader.__iter__
+
+    def recording(self):
+        epoch = self.epoch
+        for b, (mix, src, names) in enumerate(real(self)):
+            seen.append((self.ds, self.batch_size, self.shuffle, self.seed,
+                         epoch, b, mix.copy(), src.copy()))
+            yield mix, src, names
+    NativeLoader.__iter__ = recording
+    try:
+        yield seen
+    finally:
+        NativeLoader.__iter__ = real
+
+
+def check_batches(seen):
+    """Every recorded batch against the plain draws of its loader's epoch
+    (``native_loader.plain_batches``), bit for bit."""
+    plain = {}
+    for ds, B, shuffle, seed, epoch, b, mix, src in seen:
+        key = (id(ds), B, shuffle, seed, epoch)
+        if key not in plain:
+            plain[key] = list(plain_batches(ds, B, shuffle, seed, epoch))
+        want_mix, want_src, _ = plain[key][b]
+        if not (np.array_equal(mix, want_mix)
+                and np.array_equal(src, want_src)):
+            raise AssertionError(f"the native loader's batch {b} of epoch "
+                                 f"{epoch} (shuffle {shuffle}) differs from "
+                                 f"the plain draws")
 
 
 def drive_training(tmp):
-    """Phase 16: audio_train.main on the recipe, from launch counts of 0;
-    returns #1's (forward, backward) launches in that run."""
-    tr, cv = os.path.join(tmp, "tr"), os.path.join(tmp, "cv")
-    train_step.write_split(tr, TRAIN_UTTERANCES, seed=0)
-    train_step.write_split(cv, VALID_UTTERANCES, seed=1)
-    _, resumed, launches = train_step.train_and_resume(
-        "configs/tdanet.yml", tr, cv, os.path.join(tmp, "exp"))
-    if min(launches) < 1:
-        raise AssertionError(f"the training path missed #1: {launches}")
+    """Phase 16: audio_train.main on the recipe from manifests that
+    preprocess_dataset built, its batches from the native loader, from
+    launch counts of 0; returns #1's (forward, backward) launches in that
+    run and the train and validation manifest dirs."""
+    tr, cv = write_corpus(tmp)
+    NativeLoader.delivered = 0
+    with recorded_batches() as seen:
+        trainer, resumed, launches = train_step.train_and_resume(
+            "configs/tdanet.yml", tr, cv, os.path.join(tmp, "exp"))
+    model = trainer.state.model
+    if not (model.sm.remat == "scales" and model.sm.landmarked):
+        raise AssertionError(f"audio_train ran remat {model.sm.remat}, "
+                             f"expected the landmarked \"scales\"")
+    steps = len(trainer.datamodule.train_dataloader())
+    vals = len(trainer.datamodule.val_dataloader())
+    sites = SITES_PER_BLOCK * RECIPE["num_blocks"]
+    fwd, bwd = train_step.expected_launches(
+        "scales", sites, DEAD_PER_BLOCK * RECIPE["num_blocks"])
+    # 2 epochs: a step the first pass and each stage again, a validation
+    # batch one forward
+    want = (2 * steps * fwd + 2 * vals * sites, 2 * steps * bwd)
+    print(f"{2 * steps} steps and {2 * vals} validation batches under "
+          f"remat \"scales\": #1 launches {launches} (expected {want})")
+    if tuple(launches) != want:
+        raise AssertionError(f"#1 launches {launches}, expected {want}")
+    # the 2-epoch run and the resumed epoch
+    delivered = NativeLoader.delivered
+    print(f"the native loader delivered {delivered} batches (expected "
+          f"{3 * (steps + vals)}); holding each against the plain draws")
+    if delivered != len(seen) or delivered != 3 * (steps + vals):
+        raise AssertionError(f"{delivered} batches delivered, {len(seen)} "
+                             f"recorded, expected {3 * (steps + vals)}")
+    t0 = time.perf_counter()
+    check_batches(seen)
+    print(f"{len(seen)} batches equal to the plain draws bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)")
     state, step = resumed.state, resumed.train_step
     mix, src, _ = next(iter(resumed.datamodule.train_dataloader()))
     mix = torch.from_numpy(mix).cuda()
@@ -845,25 +1004,26 @@ def drive_training(tmp):
     if not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall on a fixed batch")
     torch.cuda.synchronize()
-    return launches
+    return launches, (tr, cv)
 
 
 def drive_train_slice(card, tmp):
     """Phases 14-17; phase 16's experiment is left under ``tmp`` for the
-    eval phases. Returns the backward kernel's entry of the kernels line
-    and #1's (forward, backward) launches on the training path."""
+    eval phases. Returns the backward kernel's entry of the kernels line,
+    #1's (forward, backward) launches on the training path and phase 16's
+    train and validation manifest dirs."""
     gen = torch.Generator().manual_seed(14)
     phase("14 the backward of dw_conv_glob_ln against plain (recipe sites)")
     bwd_worst, bwd_abs, bwd_low = dw_backward.check_all(gen)
     phase("15 gradients of the full-width recipe model")
     grad_snr = drive_gradients()
-    phase("16 training CLI (launch counts from 0)")
-    train_launches = drive_training(tmp)
+    phase("16 training CLI from a corpus on disk (launch counts from 0)")
+    train_launches, data = drive_training(tmp)
     phase(f"17 times (card: {card})")
     finest, step_sums, site_rows = dw_backward.time_all(gen)
-    steps = [train_step.time_steps(TRAIN_BATCH, remat)
-             for remat in (True, False)]
-    prof = train_step.profile_step(TRAIN_BATCH, True)
+    steps = {p: train_remat.measure(p, TRAIN_BATCH)
+             for p in train_remat.POLICIES}
+    prof = steps["scales"]["profile"]
     torch.cuda.synchronize()
     b8 = finest[0]
     return {
@@ -889,9 +1049,14 @@ def drive_train_slice(card, tmp):
         "step_profiled_forward_ms": prof["forward_ms"],
         "step_profiled_device_ms": prof["device_ms"],
         "step_dy_copies": prof["dy_copies"],
-        "train_step_ms": {str(r["remat"]): r["ms"] for r in steps},
-        "train_step_peak_gib": {str(r["remat"]): r["peak_bytes"] / 2 ** 30
-                                for r in steps}}, train_launches
+        "train_step_ms": {p: r["ms"] for p, r in steps.items()},
+        "train_step_peak_gib": {p: r["peak_gib"] for p, r in steps.items()},
+        "train_step_launches": {p: r["launches_per_step"]
+                                for p, r in steps.items()},
+        "train_step_profiled": {
+            p: {k: r["profile"][k] for k in ("kernels", "device_ms",
+                                             "wall_ms")}
+            for p, r in steps.items()}}, train_launches, data
 
 
 def main():
@@ -907,12 +1072,18 @@ def main():
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.cuda.synchronize()
 
-    phase("2 build (one nvcc per source, all at once)")
+    phase("2 build (one nvcc per source and g++ for the loader, all at "
+          "once)")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        built = list(pool.map(_build.build, SOURCES))
-    print(f"built {len(SOURCES)} sources in "
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        loader = pool.submit(build_loader)
+        builds = pool.map(_build.build, SOURCES)
+        count_training_macs()
+        built = list(builds)
+        so, seconds = loader.result()
+    print(f"built {len(SOURCES)} sources and the native loader in "
           f"{time.perf_counter() - t0:.2f} s wall")
+    print(f"  {os.path.relpath(so)}: g++ {seconds:.2f} s")
     for so, seconds, report in built:
         print(f"  {os.path.relpath(so)}: nvcc {seconds:.2f} s")
         entry = spill = ""
@@ -1156,7 +1327,7 @@ def main():
     torch.cuda.synchronize()
 
     with tempfile.TemporaryDirectory() as tmp:
-        backward_entry, train_launches = drive_train_slice(card, tmp)
+        backward_entry, train_launches, data = drive_train_slice(card, tmp)
         conf = os.path.join(tmp, "exp", "conf.yml")
         phase("18 corpus eval on phase 16's model (launch counts from 0)")
         evaluated = eval_path.drive_eval(card, conf, tmp)
@@ -1178,16 +1349,14 @@ def main():
         torch.cuda.synchronize()
         phase(f"23 the family's training on the card (card: {card})")
         family_training, variant_train = variants.drive_family_training(
-            card, tmp, data=(os.path.join(tmp, "tr"),
-                             os.path.join(tmp, "cv")))
+            card, tmp, data=data)
         torch.cuda.synchronize()
         phase("24 EMCAD-era family (launch counts from 0)")
         era_family, era_launches = era.drive_family(card, tmp)
         torch.cuda.synchronize()
         phase(f"25 the EMCAD-era family's training (card: {card})")
         era_training, era_train = era.drive_family_training(
-            card, tmp, data=(os.path.join(tmp, "tr"),
-                             os.path.join(tmp, "cv")))
+            card, tmp, data=data)
         torch.cuda.synchronize()
         phase("26 deployment bundles (launch counts from 0)")
         path = os.path.join(tmp, "bench.pth")
@@ -1196,8 +1365,7 @@ def main():
             card, tmp, path, os.path.join(tmp, "eval_conf.yml"))
         torch.cuda.synchronize()
         phase(f"27 data parallelism (launch counts from 0; card: {card})")
-        parallel = dp_path.drive_dp(card, tmp, data=(
-            os.path.join(tmp, "tr"), os.path.join(tmp, "cv")))
+        parallel = dp_path.drive_dp(card, tmp, data=data)
         torch.cuda.synchronize()
     print(json.dumps({"eval": evaluated, "css": css}))
     print(json.dumps({"serve": serve, "serve_times": serve_times}))

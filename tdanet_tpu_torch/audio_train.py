@@ -41,6 +41,30 @@ def make_rank_mesh(config):
     return make_mesh(devices=[resolve_device(name)])
 
 
+# MACs a segment by (model class, its config, segment samples): a count
+# takes seconds of host time, and a process may start several runs of one
+# model (a resume)
+_MACS = {}
+
+
+def model_size(model, config):
+    """The parameters and the MACs of one segment's forward (B=1; 1 s
+    where the config has no segment), as the JAX ``audio_train.py``
+    prints them; the parameters alone where the MAC count fails."""
+    from tdanet_tpu_torch.utils.profiling import count_macs, count_params
+    data = config["datamodule"]["data_config"]
+    T = int(data["sample_rate"] * (data.get("segment") or 1.0))
+    size = f"{count_params(model) / 1e6:.2f}M params"
+    key = (type(model).__name__, repr(config["audionet"]),
+           data["sample_rate"], T)
+    if key not in _MACS:
+        try:
+            _MACS[key] = count_macs(model, torch.zeros(1, T))
+        except Exception as e:  # a count is not worth a failed run
+            return f"{size} (MACs not counted: {type(e).__name__})"
+    return f"{size}, {_MACS[key] / 1e9:.2f} GMACs/segment"
+
+
 def main(config):
     """Train from a resolved config; returns the AudioTrainer."""
     from tdanet_tpu_torch.system.training_loop import AudioTrainer
@@ -55,11 +79,11 @@ def main(config):
             os.makedirs(exp_dir, exist_ok=True)
             save_yaml(os.path.join(exp_dir, "conf.yml"), config)
         trainer = AudioTrainer(config, mesh=mesh)
-        n_params = sum(p.numel() for p in trainer.model.parameters())
         where = f"device={trainer.device}" if mesh is None else (
             f"{mesh.dp} ranks, rank {mesh.rank} on {trainer.device}")
-        trainer.log(f"Model {config['audionet']['audionet_name']}: "
-                    f"{n_params / 1e6:.2f}M params, {where}")
+        if trainer.rank == 0:
+            trainer.log(f"Model {config['audionet']['audionet_name']}: "
+                        f"{model_size(trainer.model, config)}, {where}")
         trainer.fit(resume=bool(main_args.get("resume")))
     finally:
         if mesh is not None:

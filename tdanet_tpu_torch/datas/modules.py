@@ -3,12 +3,14 @@
 manifest-JSON splits (differing only in the mix manifest name), LibriCSS
 slices long-form wavs into overlapped windows for streaming separation.
 
-Every loader here is the Python :class:`~tdanet_tpu_torch.datas.datasets.
-Loader`. The JAX package prefers its C++ thread-pool loader
-(``native/loader.cc`` through ``datas/native_loader.py``) for fixed-length
-training batches; that loader is not ported yet (ROADMAP A #9), so the
-port reads every batch through the Python loader, which gives the same
-batches.
+The loaders are chosen as the JAX package chooses them: a split with a
+fixed segment (train, validation and test alike) is read by the C++
+thread-pool loader (:class:`~tdanet_tpu_torch.datas.native_loader.
+NativeLoader`, the JAX ``NativeLoader``'s batches bit for bit), a
+full-length split by the Python :class:`~tdanet_tpu_torch.datas.datasets.
+Loader`. The two draw their order and crops from different generators, so
+a fixed-segment split never falls back to the Python loader: a failed
+build of the native one raises.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from tdanet_tpu_torch.datas.datasets import (
     SeparationDataset,
     normalize_wav,
 )
+from tdanet_tpu_torch.datas.native_loader import NativeLoader
 from tdanet_tpu_torch.utils.audio_io import read_wav, wav_frames
 
 
@@ -62,6 +65,11 @@ class _ManifestDataModule:
         self.data_test = self._make(self.test_dir, self.segment)
 
     def _loader(self, ds, shuffle):
+        """The C++ loader for a fixed segment, else the Python one
+        (``tdanet_tpu/datas/modules.py:57-71``)."""
+        if ds.seg_len is not None:
+            return NativeLoader(ds, self.batch_size, shuffle=shuffle,
+                                num_workers=self.num_workers or 2)
         return Loader(ds, self.batch_size, shuffle=shuffle,
                       num_workers=self.num_workers or 1)
 

@@ -19,9 +19,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdanet_tpu_torch"
+# -split-compile 0: the device compiler optimises a source's kernels in
+# parallel threads (dw_conv_glob_ln.cu holds 64 template instances)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-Xptxas", "-v", "-split-compile", "0"]
 
 
 def _nvcc() -> str:

@@ -16,7 +16,9 @@ trainer differentiates the plain ConvNorm, which
 
 On a CUDA tensor a wrapper launches its kernel or raises. On a CPU tensor,
 and only there, it computes the plain version,
-:func:`dw_conv_glob_ln_reference` (autograd differentiates it).
+:func:`dw_conv_glob_ln_reference` (autograd differentiates it). On a meta
+tensor, which holds no data, the forward is the plain version's shapes
+(what ``utils/profiling.py`` counts the MACs of).
 
 The forward without a gradient is the registered op
 ``torch.ops.tdanet_tpu_torch.dw_conv_glob_ln`` (:data:`OP`): its CUDA
@@ -450,7 +452,7 @@ OP = torch.ops.tdanet_tpu_torch.dw_conv_glob_ln.default
 # a trace, where the dispatcher's Python kernel would add its own host
 # cost to every call (5-18 us a call on the H100's host, up to 9 ms an
 # eager forward of 512 sites; chip_smoke.py phase 26)
-_IMPL = {"cpu": _op_cpu, "cuda": _op_cuda}
+_IMPL = {"cpu": _op_cpu, "meta": _op_cpu, "cuda": _op_cuda}
 
 
 def _wants_grad(*ps):
@@ -473,14 +475,14 @@ def dw_conv_glob_ln(x, weight, bias, gamma, beta, *, stride=1, K=5,
     implementation for x's device, without the dispatcher's cost.
     ``launches`` counts the forward kernel's launches."""
     _check(x, weight, bias, gamma, beta, stride, K)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in _IMPL:
         raise RuntimeError(f"no dw_conv_glob_ln for device {x.device}")
     if not _wants_grad(x, weight, bias, gamma, beta):
         if torch.compiler.is_compiling():  # torch.export: one node a site
             return OP(x, weight, bias, gamma, beta, stride, K, eps)
         return _IMPL[x.device.type](x, weight, bias, gamma, beta, stride, K,
                                     eps)
-    if x.device.type == "cpu":  # autograd differentiates the plain version
+    if x.device.type != "cuda":  # autograd differentiates the plain version
         return dw_conv_glob_ln_reference(x, weight, bias, gamma, beta,
                                          stride=stride, K=K, eps=eps)
     args = (x, weight, bias, gamma, beta, stride, K, eps)

@@ -400,31 +400,64 @@ class UConvBlock(nn.Module):
         return self.tail(x, *self.pyramid(x), per_utterance, training,
                          generator, dp_group)
 
-    def pyramid(self, x):
-        """The block's first half: (the depth scales, their pooled sum at
-        the coarsest length)."""
+    # The stages between the JAX package's remat landmarks (its
+    # ``pyr_scale``, ``ga_out`` and ``fused_scale`` tags), which
+    # ``Recurrent(remat="scales")`` checkpoints one by one.
+
+    def pyramid_scales(self, x):
+        """The projection and the depth pyramid: the depth scales."""
         output = [self.spp_dw[0](self.proj_1x1(x))]
         for k in range(1, self.depth):
             output.append(self.spp_dw[k](output[-1]))
-        coarsest = output[-1].shape[-1]
-        global_f = output[-1]
-        for fea in output[:-1]:
-            global_f = global_f + ops.adaptive_avg_pool1d(fea, coarsest)
-        return output, global_f
+        return output
 
-    def tail(self, residual, output, global_f, per_utterance=False,
-             training=False, generator=None, dp_group=None):
-        """The block's second half: GA, LA fusion, expansion, res_conv."""
-        global_f = self.globalatt(global_f, per_utterance, training,
-                                  generator, dp_group)
-        x_fused = [la(output[i], global_f)
-                   for i, la in enumerate(self.loc_glo_fus)]
+    def global_feature(self, output, per_utterance=False, training=False,
+                       generator=None, dp_group=None):
+        """The scales pooled to the coarsest length and summed, then GA."""
+        return self.globalatt(self._pooled(output), per_utterance, training,
+                              generator, dp_group)
+
+    def fusions(self, output, global_f, n):
+        """The LA fusions of the first ``n`` scales with the global
+        feature."""
+        return [self.loc_glo_fus[i](output[i], global_f) for i in range(n)]
+
+    def expansion(self, x_fused):
+        """The top-down LA expansion over the fused scales and res_conv
+        (the residual not added). It reads ``x_fused[:depth - 1]``: the
+        first expansion pairs scale depth-2 with the finer depth-3."""
         expanded = None
         for i in range(self.depth - 2, -1, -1):
             g = x_fused[i - 1] if i == self.depth - 2 else expanded
             expanded = self.last_layer[i](x_fused[i], g)
-        return ops.conv1d(expanded, self.res_conv.weight,
-                          self.res_conv.bias) + residual
+        return ops.conv1d(expanded, self.res_conv.weight, self.res_conv.bias)
+
+    @property
+    def live_fusions(self):
+        """How many fusions the expansion reads: the coarsest never is."""
+        return self.depth - 1
+
+    def _pooled(self, output):
+        coarsest = output[-1].shape[-1]
+        global_f = output[-1]
+        for fea in output[:-1]:
+            global_f = global_f + ops.adaptive_avg_pool1d(fea, coarsest)
+        return global_f
+
+    def pyramid(self, x):
+        """The block's first half: (the depth scales, their pooled sum at
+        the coarsest length)."""
+        output = self.pyramid_scales(x)
+        return output, self._pooled(output)
+
+    def tail(self, residual, output, global_f, per_utterance=False,
+             training=False, generator=None, dp_group=None):
+        """The block's second half: GA, LA fusion (every scale's, the
+        coarsest one's too), expansion, res_conv."""
+        global_f = self.globalatt(global_f, per_utterance, training,
+                                  generator, dp_group)
+        return self.expansion(self.fusions(output, global_f, self.depth)) \
+            + residual
 
 
 class UConvBlockInject(nn.Module):
@@ -483,10 +516,26 @@ class UConvBlockInject(nn.Module):
 
     def forward(self, x, per_utterance=False, training=False,
                 generator=None, dp_group=None):
-        residual, d = x, self.depth
+        output = self.pyramid_scales(x)
+        global_f = self.global_feature(output, per_utterance, training,
+                                       generator, dp_group)
+        return self.expansion(self.fusions(output, global_f, self.depth)) \
+            + x
+
+    # The stages between the JAX package's remat landmarks, as
+    # UConvBlock's.
+
+    def pyramid_scales(self, x):
+        """The projection and the depth pyramid: the depth scales."""
         output = [self.spp_dw[0](self.proj_1x1(x))]
-        for k in range(1, d):
+        for k in range(1, self.depth):
             output.append(self.spp_dw[k](output[-1]))
+        return output
+
+    def global_feature(self, output, per_utterance=False, training=False,
+                       generator=None, dp_group=None):
+        """The pooled scales (conv-pool or average) summed, then GA."""
+        d = self.depth
         if self.pool == "conv":
             pooled = [self.conv_pool[d - k - 1](fea)
                       for k, fea in enumerate(output)]
@@ -497,21 +546,34 @@ class UConvBlockInject(nn.Module):
         global_f = pooled[0]
         for fea in pooled[1:]:
             global_f = global_f + fea
-        global_f = self.globalatt(global_f, per_utterance, training,
-                                  generator, dp_group)
+        return self.globalatt(global_f, per_utterance, training, generator,
+                              dp_group)
+
+    def fusions(self, output, global_f, n):
+        """The global feature injected into the first ``n`` scales."""
         if self.inject == "gate":
-            x_fused = [torch.sigmoid(ops.interpolate_nearest(
-                global_f, o.shape[-1])) * o for o in output]
-        else:
-            x_fused = [ops.interpolate_nearest(global_f, o.shape[-1]) + o
-                       for o in output]
+            return [torch.sigmoid(ops.interpolate_nearest(
+                global_f, o.shape[-1])) * o for o in output[:n]]
+        return [ops.interpolate_nearest(global_f, o.shape[-1]) + o
+                for o in output[:n]]
+
+    def expansion(self, x_fused):
+        """The top-down LA expansion and res_conv (the residual not
+        added); the first expansion's global input is scale depth-3
+        ("prev") or depth-1 ("next")."""
+        d = self.depth
         first = d - 3 if self.expand_pair == "prev" else d - 1
         expanded = None
         for i in range(d - 2, -1, -1):
             g = x_fused[first] if i == d - 2 else expanded
             expanded = self.last_layer[i](x_fused[i], g)
-        return ops.conv1d(expanded, self.res_conv.weight,
-                          self.res_conv.bias) + residual
+        return ops.conv1d(expanded, self.res_conv.weight, self.res_conv.bias)
+
+    @property
+    def live_fusions(self):
+        """How many fusions the expansion reads: all of them when the
+        first expansion pairs the coarsest scale ("next")."""
+        return self.depth - (self.expand_pair == "prev")
 
 
 def _iteration_generator(seed, like):
@@ -533,24 +595,46 @@ def _draw_seed(generator, training):
                              device=generator.device))
 
 
+def _recomputed(fn, *inputs):
+    """``fn(*inputs)`` under non-reentrant ``torch.utils.checkpoint``: the
+    inputs are kept, whatever ``fn`` saves inside is recomputed in the
+    backward. Dropout masks come from generators seeded inside ``fn``, so
+    the global RNG state is not kept."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *inputs, use_reentrant=False, preserve_rng_state=False)
+
+
 class Recurrent(nn.Module):
     """One shared block applied ``_iter`` times; from the second iteration
     its input is concat_block(mixture + x). The block is ``block`` when
-    given (a UConvBlockInject of the variant family), else TDANetBest's
-    UConvBlock of ``fixed_mha``.
+    given (a UConvBlockInject of the variant family, or an EMCAD-era
+    block), else TDANetBest's UConvBlock of ``fixed_mha``.
 
-    ``remat`` (False, True or "scales") checkpoints each iteration where
-    autograd records the graph: ``torch.utils.checkpoint`` (non-reentrant)
-    keeps only the iteration's input and recomputes the whole iteration in
-    the backward. "scales", the JAX package's default for training, saves
-    its pyramid, GA and fusion outputs there; here it is the same full
-    per-iteration checkpointing as True (PERF.md gives the step's memory
-    with and without it). Under ``torch.no_grad`` nothing is recorded and
-    ``remat`` changes nothing.
+    ``remat`` sets what autograd keeps of each iteration where it records
+    the graph (under ``torch.no_grad`` nothing is recorded and ``remat``
+    changes nothing); every policy gives the same gradients bit for bit:
+
+    - False: everything;
+    - True: the iteration's input (``torch.utils.checkpoint``,
+      non-reentrant); the backward recomputes the whole iteration;
+    - "scales", the JAX package's default for training: the landmarks
+      that the JAX blocks tag, ``pyr_scale`` (the depth pyramid's scales),
+      ``ga_out`` (GA's output) and ``fused_scale`` (the fusions the
+      expansion reads), and the iteration's input. Each stage between
+      them is checkpointed on its own (:func:`_recomputed`): the pyramid
+      (the concat block, the projection and the depthwise pyramid), the
+      pooling and GA, the fusions, and the expansion with res_conv; the
+      backward recomputes each stage once, from its landmarks. The
+      coarsest fusion of UConvBlock, which the expansion never reads, is
+      not computed (the JAX program drops it as dead code). This holds
+      for UConvBlock and UConvBlockInject, whose JAX classes tag the
+      landmarks; a block without the stages (``UConvBlockEra``,
+      ``UConvBlockV14``: their JAX classes tag nothing, so JAX's policy
+      saves nothing named) is checkpointed whole, as under True.
 
     In training every iteration draws its dropout masks from a generator of
     its own, seeded from ``generator`` before the iteration starts, so a
-    recomputed iteration draws the same masks."""
+    recomputed iteration or stage draws the same masks."""
 
     def __init__(self, out_channels=128, in_channels=512, upsampling_depth=4,
                  _iter=4, fixed_mha=False, remat=False, block=None):
@@ -562,6 +646,12 @@ class Recurrent(nn.Module):
         self.concat_block = nn.Sequential(
             nn.Conv1d(out_channels, out_channels, 1, groups=out_channels),
             nn.PReLU())
+
+    @property
+    def landmarked(self):
+        """Whether the block runs ``remat="scales"`` between landmarks
+        (else it is checkpointed whole)."""
+        return hasattr(self.unet, "pyramid_scales")
 
     def forward(self, x, n_iter=None, per_utterance=False, training=False,
                 generator=None, dp_group=None):
@@ -575,17 +665,44 @@ class Recurrent(nn.Module):
                 f"n_iter must be in [1, {self.iter}], got {it_count}")
         if training and generator is None:
             raise ValueError("training needs a torch.Generator")
-        remat = bool(self.remat) and torch.is_grad_enabled()
+        remat = self.remat if torch.is_grad_enabled() else False
+        if remat == "scales" and self.landmarked:
+            iteration = self._iteration_scales
+        elif remat:
+            iteration = functools.partial(_recomputed, self._iteration)
+        else:
+            iteration = self._iteration
         mixture = x
         for i in range(it_count):
-            args = (x, mixture, i > 0, per_utterance, training,
-                    _draw_seed(generator, training), dp_group)
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    self._iteration, *args, use_reentrant=False)
-            else:
-                x = self._iteration(*args)
+            x = iteration(x, mixture, i > 0, per_utterance, training,
+                          _draw_seed(generator, training), dp_group)
         return x
+
+    def _iteration_scales(self, x, mixture, concat, per_utterance,
+                          training, seed, dp_group=None):
+        """One iteration under ``remat="scales"``: its four stages, each
+        checkpointed, so autograd keeps the iteration's input (and the
+        mixture), the scales, GA's output and the live fusions."""
+        unet = self.unet
+
+        def pyramid(carry, *mix):
+            y = self._concat(mix[0] + carry) if mix else carry
+            return (y, *unet.pyramid_scales(y))
+
+        def global_feature(*scales):
+            return unet.global_feature(
+                list(scales), per_utterance, training,
+                _iteration_generator(seed, scales[0]), dp_group)
+
+        def fusions(global_f, *scales):
+            return tuple(unet.fusions(list(scales), global_f,
+                                      unet.live_fusions))
+
+        y, *scales = _recomputed(pyramid, x, *([mixture] if concat else []))
+        global_f = _recomputed(global_feature, *scales)
+        fused = _recomputed(fusions, global_f, *scales)
+        out = _recomputed(lambda *f: unet.expansion(list(f)), *fused)
+        return out + y
 
     @torch.inference_mode()
     def forward_with_state(self, x, n_iter=None, per_utterance=False):

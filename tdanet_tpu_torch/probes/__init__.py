@@ -5,7 +5,9 @@ counterparts of ``scripts/probe_uconv_kernel.py`` and
 ``scripts/probe_mosaic_ops.py`` and ``scripts/probe_mosaic_ops2.py``),
 ``dw_sites`` (#1 at the served forward's sites), and the training slice's
 ``dw_backward`` (#1's backward at the recipe's sites) and ``train_step``
-(the recipe's step: time, peak memory, profile), and the eval slice's
+(the recipe's step: time, peak memory, profile), the corpus slice's
+``train_remat`` (the step under each checkpoint policy; counterpart of
+``scripts/probe_train_remat.py``), and the eval slice's
 ``eval_path`` (the eval and CSS CLIs on the card), and the serving
 slice's ``serve_path`` (the engines checked and timed on the card),
 ``bench_streaming`` and ``bench_async_server`` (counterparts of

@@ -24,8 +24,10 @@ The phase:
       computed meanwhile, and (d) and (e) run as soon as their bundles
       are written, while the bench bundle still traces;
   (b) the bench bundle in a fresh interpreter: 8 utterances of 2 s
-      against ``separate_batched`` on the model (>= 60 dB), the first
-      against the model in float64 on the CPU (>= 60 dB), the E8 program
+      against ``separate_batched`` on the model (>= 60 dB; the model is
+      held against float64 on the CPU in phase 5, and the bundle's own
+      float64 reference, 38 s of the CPU beside the exports, is cut for
+      ``chip_smoke.py``'s time limit), the E8 program
       against ``separate_batched(num_blocks=8)``, the progressive pair at
       thresholds 0, inf and the median stage-1 delta against
       ``separate_progressive`` (and its census), ``load_streaming`` on 4
@@ -54,7 +56,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import copy
 import csv
 import json
 import os
@@ -182,8 +183,8 @@ def _launches(fn):
 
 def bench_references(model, tmp):
     """The model's answers to what the bench bundle will be asked, on the
-    card (and one utterance in float64 on the CPU), and the inputs file
-    of the serving subprocess. Runs while the exports run."""
+    card, and the inputs file of the serving subprocess. Runs while the
+    exports run."""
     wavs = np.stack([tone_mix(SECONDS, seed=60 + i) for i in range(BATCH)])
     target = -(-wavs.shape[1] // model.lcm) * model.lcm
     mixes = np.zeros((BATCH, target), np.float32)
@@ -208,17 +209,12 @@ def bench_references(model, tmp):
         ref["S"] = drive_streams(MultiStreamSeparator(
             model, max_streams=STREAMS, segment=SEGMENT, overlap=0.25,
             sample_rate=SR), streams)
-    cpu64 = copy.deepcopy(model).cpu().double()
-    t0 = time.perf_counter()
-    ref["cpu64"] = separate(cpu64, wavs[0])
-    cpu_s = time.perf_counter() - t0
-    del cpu64
     inputs = os.path.join(tmp, "deploy_inputs.npz")
     np.savez(inputs, wavs=wavs, thresholds=np.array(thresholds),
              **{f"stream{i}": s for i, s in enumerate(streams)})
     return dict(inputs=inputs, ref=ref, thresholds=thresholds,
                 escalated=escalated, wavs=wavs, streams=streams,
-                cpu_s=cpu_s, target=target)
+                target=target)
 
 
 def serve_bench(bundle, refs, tmp):
@@ -268,12 +264,6 @@ def serve_bench(bundle, refs, tmp):
     print(f"  progressive escalations at thresholds {thresholds}: "
           f"{escalated} of {BATCH}, as the model's")
 
-    cpu_s = refs["cpu_s"]
-    agree["T_vs_cpu64_db"] = _snr(ref["cpu64"], got["T"][0])
-    print(f"  bundle vs the model in float64 on the CPU ({cpu_s:.1f} s): "
-          f"{agree['T_vs_cpu64_db']:.2f} dB (limit {LIMIT_DB:.0f})")
-    _expect(agree["T_vs_cpu64_db"] >= LIMIT_DB, "bundle vs CPU float64")
-
     depth = DEPTH_FULL
     nodes = {"T": SITES_PER_BLOCK * depth, "E8": SITES_PER_BLOCK * DEPTH1,
              "P_s1": SITES_PER_BLOCK * DEPTH1,
@@ -292,7 +282,7 @@ def serve_bench(bundle, refs, tmp):
     print(f"  #1 op nodes {rec['nodes']}; wrapper launches at set-up "
           f"{rec['setup_launches']}, 0 in replays; device kernels a replay"
           f" (profiler) {rec['profiled']}")
-    return {**agree, "cpu64_s": cpu_s, "served_wall_s": wall,
+    return {**agree, "served_wall_s": wall,
             "thresholds": thresholds, "escalated": escalated, **rec}
 
 

@@ -25,10 +25,12 @@ seeded random weights, fp32 with TF32 off unless a part says otherwise:
     over each rank's own rows, as a DistributedDataParallel wrap would.
     Each rank's step ms beside the one-process step's;
 (c) ``launch_multihost --nprocs 2`` running ``audio_train`` on
-    configs/tdanet.yml (bf16, checkpointing, global B=8) over phase 16's
+    configs/tdanet.yml (bf16, remat "scales", global B=8) over phase 16's
     16 + 8 synthetic utterances, one epoch: both ranks' history rows
-    equal (the trainer checks it), one best_model.pth, whose forward on
-    the card equals rank 0's best checkpoint's within 1e-6 of max abs;
+    equal (the trainer checks it), #1's launches on each rank exactly
+    ``train_step.expected_launches`` a step (928 forward, 464 backward)
+    and 512 a validation batch, one best_model.pth, whose forward on the
+    card equals rank 0's best checkpoint's within 1e-6 of max abs;
 (d) ``audio_test --dp 2`` on phase 18's corpus over a mesh of
     [cuda:0, cuda:0] against ``--dp 1``: every metric of metrics.csv
     within 0.01 dB, #1's launches exactly twice (each batch of 8 is two
@@ -71,8 +73,8 @@ from tdanet_tpu_torch.models import BaseModel, TDANetBest
 from tdanet_tpu_torch.parallel import make_mesh
 from tdanet_tpu_torch.probes import dw_backward, eval_path, serve_path
 from tdanet_tpu_torch.probes.dw_sites import block_sites
-from tdanet_tpu_torch.probes.train_step import (RECIPE, Kinks, tone_batch,
-                                                tone_mix, write_split)
+from tdanet_tpu_torch.probes.train_step import (
+    RECIPE, Kinks, expected_launches, tone_batch, tone_mix, write_split)
 from tdanet_tpu_torch.system.optimizers import make_optimizer
 from tdanet_tpu_torch.system.trainer import (create_train_state,
                                              make_train_step)
@@ -362,6 +364,11 @@ def rank_train(argv):
           f"{time.perf_counter() - t0:.2f}", flush=True)
 
 
+def _utterances(split):
+    with open(os.path.join(split, "mix_clean.json")) as f:
+        return len(json.load(f))
+
+
 def drive_train(tmp, data):
     tr, cv = data
     exp = os.path.join(tmp, "dp_exp")
@@ -384,8 +391,15 @@ def drive_train(tmp, data):
     launches = {int(m.group(1)): (int(m.group(2)), int(m.group(3)))
                 for m in re.finditer(r"RANK (\d) DW_LAUNCHES (\d+) (\d+)",
                                      out)}
+    # every rank loads the global batch of 8: its steps and validation
+    # batches are the splits' utterances // 8, whatever its rows
+    steps, vals = (_utterances(d) // 8 for d in (tr, cv))
+    sites = SITES_PER_BLOCK * RECIPE["num_blocks"]
+    fwd, bwd = expected_launches("scales", sites,
+                                 DEAD_SITES * RECIPE["num_blocks"])
+    want = (steps * fwd + vals * sites, steps * bwd)
     _expect(sorted(launches) == [0, 1] and launches[0] == launches[1]
-            and min(launches[0]) > 0, f"(c) #1 launches {launches}")
+            == want, f"(c) #1 launches {launches}, expected {want} a rank")
     with open(os.path.join(exp, "history.json")) as f:
         hist = json.load(f)
     _expect(len(hist) == 1 and all(np.isfinite(v) for v in hist[0].values()),
@@ -406,7 +420,8 @@ def drive_train(tmp, data):
     lim = 1e-6 * want.abs().max().item()
     print(f"  (c) history {hist[0]}; best_model.pth (step {best_step}) "
           f"against rank 0's checkpoint: max|d| {err:.3e} (limit "
-          f"{lim:.3e}); #1 launches per rank {launches[0]}")
+          f"{lim:.3e}); #1 launches per rank {launches[0]} (expected "
+          f"{want})")
     _expect(err <= lim, "(c) best_model.pth differs from the trained model")
     return {"history": hist[0], "export_max_abs_err": err,
             "launches_per_rank": [list(launches[r]) for r in (0, 1)]}, \

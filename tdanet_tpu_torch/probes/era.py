@@ -18,7 +18,9 @@ at eps 1e-5); every shape not yet held against plain is checked (phase
 3's limit); then ``separate`` on the 2 s clip runs the kernel, its sites
 recorded and all among those checked, #1's launches exactly
 ``SITES[name]`` x 16 a forward. TDANetEMCADv1_6's output is held against
-the same model in float64 on the CPU at 16 blocks (>= 90 dB); the other
+the same model in float64 on the CPU at ``GRAD_BLOCKS`` blocks (the same
+``.pth``; >= 90 dB; the 16-block CPU forward, 22 s, is cut for the time
+limit of ``chip_smoke.py``); the other
 21 load the same ``.pth`` at 2 blocks (the weights are shared across
 blocks) and run ``separate`` on the card through #1 and through the plain
 path: >= 60 dB (their float64 parity with the JAX package is the CPU
@@ -29,12 +31,15 @@ CUDA graph, and a profiled window of replays counts #1's device kernels
 cuDNN's grouped convolutions among them.
 
 Phase 25 (:func:`drive_family_training`): TDANetEMCADv1_6 at the
-recipe's widths (8 kHz), B=2 1 s fp32, every parameter's gradient against
+recipe's widths (8 kHz) and ``GRAD_BLOCKS`` of its 16 blocks (the
+float64 step of 16 blocks, 73 s of the CPU, is cut to 4 for the time
+limit of ``chip_smoke.py``; the sites a block are the same),
+B=2 1 s fp32, every parameter's gradient against
 CPU float64 taken at the card step's side of every activation kink
 (>= 50 dB; ``train_step.Kinks``: an element within rounding of a PReLU's
 kink moves every gradient upstream of it, so plain float64 is no
-reference an fp32 step can meet) with #1's launches per step exact with
-and without checkpointing (``train_step.check_gradients``); #1's forward
+reference an fp32 step can meet) with #1's launches per step exact under
+each checkpoint policy (``train_step.check_gradients``); #1's forward
 and backward at every site's own operands in that step, against float64
 beside its plain version in fp32 (:func:`check_step_operands`, within
 ``SITE_MARGIN_DB`` of plain); ``audio_train`` on
@@ -43,7 +48,8 @@ config written to the temp dir, ``feat_len`` for the 3 s segment), on
 phase 16's data: 2 epochs and a resume, #1's forward and backward
 launches exact over the run, ``best_model.pth`` through ``from_pretrain``
 equal to the trained model; the train step at B=8 3 s bf16 as
-``audio_train`` builds it (per-iteration checkpointing), its peak memory
+``audio_train`` builds it (remat "scales", which checkpoints the era
+block whole: its JAX class tags no landmark), its peak memory
 and exact launches. Every #1 launch of the phase is recorded and each
 site shape held against plain afterwards, forward and backward, at its
 channels and eps (:func:`check_training_sites`). Every line with a time
@@ -106,6 +112,7 @@ SITES = {
     "TDANetTranXNet": 17}
 FLAGSHIP = "TDANetEMCADv1_6"
 CHECK_BLOCKS = 2  # the other 21 against the card's plain path here
+GRAD_BLOCKS = 4  # of 16: the CPU float64 references of phases 24 and 25
 TRAIN_CONF = "configs/tdanet.yml"
 TRAIN_UTTERANCES, VALID_UTTERANCES = 16, 8
 PROFILED_REPLAYS = 3
@@ -352,10 +359,21 @@ def drive_family(card, tmp):
                 f"{name}: bad output {est.shape}")
         row = dict(launches=n, sites=SITES[name])
         if name == FLAGSHIP:
+            # against float64 at GRAD_BLOCKS of the 16 blocks (the same
+            # .pth): the 16-block CPU step took 22 s of the time limit
+            del model
+            model = BaseModel.from_pretrain(
+                path, num_blocks=GRAD_BLOCKS).cuda()
+            est, _, n4 = sites.check_then_run(
+                lambda: separate(model, wav), f"{name} {GRAD_BLOCKS} blocks")
+            _expect(n4 == SITES[name] * GRAD_BLOCKS,
+                    f"{name} at {GRAD_BLOCKS} blocks: {n4} launches")
             db, cpu_s = cpu64_snr(model, wav, est)
-            row.update(vs_cpu64_db=db, cpu64_s=cpu_s)
-            against, limit = (f"card fp32 vs CPU float64 at 16 blocks "
-                              f"{db:.2f} dB (the CPU {cpu_s:.1f} s)"), LIMIT_DB
+            row.update(vs_cpu64_db=db, cpu64_s=cpu_s,
+                       cpu64_blocks=GRAD_BLOCKS)
+            against, limit = (f"card fp32 vs CPU float64 at {GRAD_BLOCKS} "
+                              f"blocks {db:.2f} dB (the CPU {cpu_s:.1f} s)"
+                              ), LIMIT_DB
         else:
             # the other 21 against the card's plain path at 2 blocks (a
             # cut for chip_smoke.py's time; their float64 parity against
@@ -468,8 +486,14 @@ def train_flagship(tmp, tr, cv):
     steps = 2 * len(trainer.datamodule.train_dataloader())
     vals = 2 * len(trainer.datamodule.val_dataloader())
     # a step: the forward, again under recomputation, and one backward a
-    # site (every site reaches the loss); a validation batch: one forward
-    want = (2 * sites * steps + sites * vals, sites * steps)
+    # site (every site reaches the loss); a validation batch: one forward.
+    # The trainer's remat "scales" checkpoints the era block whole (its JAX
+    # class tags no landmark), so the count is full checkpointing's
+    fwd, bwd = train_step.expected_launches(model.sm.remat, sites, 0,
+                                            model.sm.landmarked)
+    _expect(not model.sm.landmarked and fwd == 2 * sites,
+            "the era block should be checkpointed whole")
+    want = (fwd * steps + sites * vals, bwd * steps)
     print(f"{steps} steps and {vals} validation batches: #1 launches "
           f"{run} (expected {want})")
     _expect(run == want, f"#1 launches {run} over the run, expected {want}")
@@ -487,7 +511,8 @@ def drive_family_training(card, tmp, data=None):
         train_step.write_split(data[1], VALID_UTTERANCES, seed=1)
     rec = {}
     with card_sites(site_key) as seen:
-        model = models.get(FLAGSHIP)(**train_step.RECIPE)
+        model = models.get(FLAGSHIP)(**dict(train_step.RECIPE,
+                                            num_blocks=GRAD_BLOCKS))
         model.reset_parameters(torch.Generator().manual_seed(79))
         low, launches, flips = train_step.check_gradients(
             model, SITES[FLAGSHIP] * model.num_blocks, seed=6,
@@ -506,8 +531,10 @@ def drive_family_training(card, tmp, data=None):
         torch.cuda.empty_cache()
         train, run, feat_len = train_flagship(tmp, *data)
         rec.update(train)
-        step = train_step.time_steps(8, "scales", model=FLAGSHIP,
-                                     feat_len=feat_len)
+        # the median of 3 steps after 1 (5 after 2 in phase 17): the
+        # time limit
+        step = train_step.time_steps(8, "scales", steps=3, warmup=1,
+                                     model=FLAGSHIP, feat_len=feat_len)
         sites = SITES[FLAGSHIP] * train_step.RECIPE["num_blocks"]
         _expect(tuple(step["launches_per_step"]) == (2 * sites, sites),
                 f"the step launched #1 {step['launches_per_step']} times, "

@@ -35,7 +35,8 @@ from tdanet_tpu_torch.ops import basic
 from tdanet_tpu_torch.system.optimizers import make_optimizer
 from tdanet_tpu_torch.system.trainer import (create_train_state,
                                              make_train_step)
-from tdanet_tpu_torch.utils.timing import card_line, profiled, snr_db
+from tdanet_tpu_torch.utils.timing import (card_line, counted_windows,
+                                           profiled, snr_db)
 
 RECIPE = dict(out_channels=128, in_channels=512, num_blocks=16,
               upsampling_depth=5, enc_kernel_size=4, num_sources=2,
@@ -67,9 +68,10 @@ def tone_mix(seconds, seed, sr=16000):
     return np.sum(srcs, axis=0).astype(np.float32)
 
 
-def write_split(root, n, seed, seconds=3.5, sr=8000):
-    """n utterances of two tone-plus-noise sources and their mixture, with
-    the manifests the data modules read."""
+def write_split(root, n, seed, seconds=3.5, sr=8000, manifests=True):
+    """n utterances of two tone-plus-noise sources and their mixture as
+    ``root/{mix_clean,s1,s2}/utt{i}.wav``, with the manifests the data
+    modules read beside them (``manifests``)."""
     from tdanet_tpu_torch.utils import write_wav
     rng = np.random.default_rng(seed)
     T = int(seconds * sr)
@@ -84,7 +86,7 @@ def write_split(root, n, seed, seconds=3.5, sr=8000):
             path = os.path.join(root, key, f"utt{i}.wav")
             write_wav(path, data, sr)
             infos[key].append([path, T])
-    for key, rows in infos.items():
+    for key, rows in infos.items() if manifests else ():
         with open(os.path.join(root, f"{key}.json"), "w") as f:
             json.dump(rows, f)
 
@@ -208,25 +210,44 @@ class Kinks:
             F.relu, torch.Tensor.amax = self.plain["relu"], self.plain["amax"]
 
 
+def expected_launches(remat, sites, dead=0, landmarked=True):
+    """#1's (forward, backward) launches of one train step, for ``sites``
+    sites over the step's iterations of which ``dead`` never reach the
+    loss: no checkpointing runs every site once forward; full
+    checkpointing (True) twice (the recomputed iteration); "scales" the
+    live sites twice (the first pass skips the coarsest fusion, and each
+    stage between landmarks is recomputed once) where the block has the
+    landmark stages (``Recurrent.landmarked``), else as True. Every
+    policy runs the backward at each live site once."""
+    live = sites - dead
+    if not remat:
+        return sites, live
+    if remat == "scales" and landmarked:
+        return 2 * live, live
+    return 2 * sites, live
+
+
 def check_gradients(model, sites, dead=0, seed=3, limit_db=50.0):
     """``model`` (on the CPU, fp32, seeded) at B=2, 1 s fp32 on the card:
-    #1's (forward, backward) launches of one step exactly (sites, sites -
-    dead) without checkpointing and (2 sites, sites - dead) with it
-    (``dead`` sites never reach the loss); each parameter's gradient
-    against the same model in float64 on the CPU taken at the card step's
-    side of every activation kink (:class:`Kinks`), SNR >= ``limit_db``;
-    with dropout on, the gradients with and without checkpointing equal
-    to >= 60 dB. Returns (the lowest SNR, {remat: launches}, the elements
-    whose own float64 values lie on the other side of a kink)."""
+    #1's (forward, backward) launches of one step exactly
+    :func:`expected_launches` without checkpointing, with it (True) and
+    under "scales" (``dead`` sites never reach the loss); each
+    parameter's gradient against the same model in float64 on the CPU
+    taken at the card step's side of every activation kink
+    (:class:`Kinks`), SNR >= ``limit_db``; with dropout on, the gradients
+    with each checkpoint policy equal to those without to >= 60 dB.
+    Returns (the lowest SNR, {remat: launches}, the elements whose own
+    float64 values lie on the other side of a kink)."""
     name = type(model).__name__
     loss_fn = PITLossWrapper(pairwise_neg_snr, threshold_byloss=True)
     cpu64 = copy.deepcopy(model).double()
     model = model.cuda()
+    landmarked = model.sm.landmarked
     mix, src = tone_batch(2, seconds=1.0, seed=seed)
     grads, launches = {}, {}
     card_kinks = Kinks()
-    for remat, want in ((False, (sites, sites - dead)),
-                        (True, (2 * sites, sites - dead))):
+    for remat in (False, True, "scales"):
+        want = expected_launches(remat, sites, dead, landmarked)
         model.sm.remat = remat
         before = counts()
         with card_kinks() if not remat else contextlib.nullcontext():
@@ -274,16 +295,18 @@ def check_gradients(model, sites, dead=0, seed=3, limit_db=50.0):
     bad = [n for n, v in snrs.items() if v < limit_db]
     _expect(not bad, f"gradients disagree with the CPU: {bad[:5]}")
     drop = {}
-    for remat in (False, True):
+    for remat in (False, True, "scales"):
         model.sm.remat = remat
         _, drop[remat] = loss_and_grads(
             model, loss_fn, mix, src, training=True,
             generator=torch.Generator().manual_seed(5))
-    same = min(snr_db(drop[False][n], drop[True][n]) for n in drop[False]
-               if n not in zeros)
-    print(f"dropout on: gradients with and without checkpointing, lowest "
-          f"SNR {same:.2f} dB (limit 60)")
-    _expect(same >= 60.0, "checkpointed gradients differ with dropout on")
+    for remat in (True, "scales"):
+        same = min(snr_db(drop[False][n], drop[remat][n])
+                   for n in drop[False] if n not in zeros)
+        print(f"dropout on: gradients with checkpointing {remat} against "
+              f"without, lowest SNR {same:.2f} dB (limit 60)")
+        _expect(same >= 60.0, f"checkpointed ({remat}) gradients differ "
+                              f"with dropout on")
     torch.cuda.synchronize()
     return low[0][1], launches, flips
 
@@ -343,12 +366,18 @@ def train_and_resume(conf, tr, cv, exp):
     return trainer, resumed, launches
 
 
+def policy_name(remat):
+    """A checkpoint policy's name: none, full or scales."""
+    return {False: "none", True: "full"}.get(remat, remat)
+
+
 def time_steps(B, remat, steps=5, warmup=2, model="TDANetBest",
-               **overrides):
+               profile=False, **overrides):
     """The step's median ms over ``steps`` after ``warmup``, its runs, the
     peak allocated bytes, and #1's forward and backward launches per
     step, for the registered ``model`` at the recipe's widths (and
-    ``overrides`` of its constructor's arguments)."""
+    ``overrides`` of its constructor's arguments); with ``profile``, one
+    more step profiled (:func:`profile_step`)."""
     state, step = setup(remat, model=model, **overrides)
     mix, src = tone_batch(B)
     for i in range(warmup):
@@ -366,61 +395,67 @@ def time_steps(B, remat, steps=5, warmup=2, model="TDANetBest",
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0) * 1e3)
     per_step = tuple((a - b) // steps for a, b in zip(counts(), before))
-    row = dict(model=model, B=B, remat=bool(remat),
+    row = dict(model=model, B=B, remat=remat,
                ms=statistics.median(runs), runs=runs,
                peak_bytes=torch.cuda.max_memory_allocated(),
                launches_per_step=per_step, loss=loss.item())
     print(f"{model} train step B={B} 3 s bf16 checkpointing "
-          f"{'on' if remat else 'off'}: median {row['ms']:.1f} ms (runs "
+          f"{policy_name(remat)}: median {row['ms']:.1f} ms (runs "
           f"{[round(r, 1) for r in runs]}), peak "
           f"{row['peak_bytes'] / 2**30:.2f} GiB allocated; #1 launches per "
           f"step forward {per_step[0]}, backward {per_step[1]} "
           f"[{card_line()}]", flush=True)
+    if profile:
+        row["profile"] = profile_step(state, step, mix, src, per_step,
+                                      policy_name(remat))
     del state, step
     torch.cuda.empty_cache()
     return row
 
 
-def profile_step(B, remat):
-    """One profiled step after a warm-up: device kernels, device ms, and
-    #1's forward and backward kernels and device ms."""
-    state, step = setup(remat)
-    mix, src = tone_batch(B)
-    state, loss = step(state, mix, src, torch.Generator().manual_seed(0))
-    copies = DwConvGlobLnFunction.dy_copies
-    with profiled() as prof:
-        t0 = time.perf_counter()
-        state, loss = step(state, mix, src,
-                           torch.Generator().manual_seed(1))
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CUDA]
-    dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731 (ms)
-    pick = lambda name: [e for e in events if name in e.key]  # noqa: E731
-    fwd, bwd = pick(FORWARD_NAME), pick(BACKWARD_NAME)
-    result = dict(kernels=sum(e.count for e in events),
-                  device_ms=sum(dev(e) for e in events), wall_ms=wall,
-                  forward_kernels=sum(e.count for e in fwd),
-                  forward_ms=sum(dev(e) for e in fwd),
-                  backward_kernels=sum(e.count for e in bwd),
-                  backward_ms=sum(dev(e) for e in bwd),
-                  dy_copies=DwConvGlobLnFunction.dy_copies - copies,
-                  top=[(dev(e), e.count, e.key[:90]) for e in
-                       sorted(events, key=dev, reverse=True)[:10]])
-    print(f"profiled train step B={B} checkpointing "
-          f"{'on' if remat else 'off'}: {result['kernels']} device kernels,"
-          f" {result['device_ms']:.2f} ms device time in {wall:.1f} ms wall "
-          f"(profiler on); #1 forward {result['forward_kernels']} kernels "
+def profile_step(state, step, mix, src, want, name):
+    """One profiled step of ``step``: device kernels, device ms, and #1's
+    forward and backward kernels and device ms; the profiler's #1 kernels
+    held to ``want``, #1's (forward, backward) launches a step
+    (``timing.counted_windows``: a short window is read once more)."""
+    def read():
+        copies = DwConvGlobLnFunction.dy_copies
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            step(state, mix, src, torch.Generator().manual_seed(1))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None)
+                  == torch.autograd.DeviceType.CUDA]
+        dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731 (ms)
+        pick = lambda name: [e for e in events  # noqa: E731
+                             if name in e.key]
+        fwd, bwd = pick(FORWARD_NAME), pick(BACKWARD_NAME)
+        result = dict(kernels=sum(e.count for e in events),
+                      device_ms=sum(dev(e) for e in events), wall_ms=wall,
+                      forward_kernels=sum(e.count for e in fwd),
+                      forward_ms=sum(dev(e) for e in fwd),
+                      backward_kernels=sum(e.count for e in bwd),
+                      backward_ms=sum(dev(e) for e in bwd),
+                      dy_copies=DwConvGlobLnFunction.dy_copies - copies,
+                      top=[(dev(e), e.count, e.key[:90]) for e in
+                           sorted(events, key=dev, reverse=True)[:10]])
+        return (result["forward_kernels"] + result["backward_kernels"],
+                sum(want), result)
+
+    result = counted_windows(
+        read, f"profiled step, checkpointing {name} (forward + backward)")
+    print(f"profiled train step B={mix.shape[0]} checkpointing {name}: "
+          f"{result['kernels']} device kernels, {result['device_ms']:.2f} "
+          f"ms device time in {result['wall_ms']:.1f} ms wall (profiler "
+          f"on); #1 forward {result['forward_kernels']} kernels "
           f"{result['forward_ms']:.2f} ms, backward "
           f"{result['backward_kernels']} kernels {result['backward_ms']:.2f}"
           f" ms; dy copied to x's layout {result['dy_copies']} times "
           f"[{card_line()}]")
     for ms, n, key in result["top"]:
         print(f"  {ms:8.3f} ms {n:5d}x {key}")
-    del state, step
-    torch.cuda.empty_cache()
     return result
 
 
@@ -433,10 +468,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card: this probe runs on a GPU")
     print(card_line())
-    rows = [time_steps(args.batch, flag == "on")
+    rows = [time_steps(args.batch, flag == "on", profile=True)
             for flag in args.remat.split(",")]
-    record = dict(card=card_line(), rows=rows,
-                  profile=profile_step(args.batch, True))
+    record = dict(card=card_line(), rows=rows)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -74,22 +74,57 @@ def graph_time(fn, reps=50, runs=7):
 # only the device activity that its clock places inside the window, and
 # the device's timestamps, converted to the host's clock, can put the
 # first or last kernels of work that starts or ends at the window's edge
-# just outside it (ROADMAP C #8: 2 ms early in one window of 30 on an
-# NVIDIA H100 80GB HBM3, 700.00 W).
-WINDOW_PAD_S = 0.05
+# outside it (ROADMAP C #8: 2 ms early in one window of 30 of a fresh
+# process; more than 50 ms early late in chip_smoke.py's process, where
+# windows padded by 50 ms lost the first kernels of their work, #1's
+# among them; on an NVIDIA H100 80GB HBM3, 700.00 W).
+WINDOW_PAD_S = 0.3
+
+
+# Late in chip_smoke.py's process, windows padded on the host still lost
+# a run of the first device kernels of their work (up to about 40: #1's
+# first sites among them). So the device work inside a window is framed
+# by sentinel kernels, ``torch.cuda._sleep``'s spin kernel, which a lost
+# run at either edge takes first; the window's results leave them out.
+SENTINEL = "spin_kernel"
+SENTINEL_KERNELS, SENTINEL_CYCLES = 64, 4_000_000  # the last: about 2 ms
+
+
+def _sentinels():
+    for _ in range(SENTINEL_KERNELS):
+        torch.cuda._sleep(1000)
+    torch.cuda._sleep(SENTINEL_CYCLES)
+
+
+class _Window:
+    """A profiler's results without the window's sentinel kernels."""
+
+    def __init__(self, prof):
+        self.prof = prof
+
+    def key_averages(self):
+        return [e for e in self.prof.key_averages()
+                if SENTINEL not in e.key]
+
+    def events(self):
+        return [e for e in self.prof.events() if SENTINEL not in e.name]
 
 
 @contextlib.contextmanager
 def profiled(pad_s=WINDOW_PAD_S):
     """A profiler window (CPU and CUDA activity) whose work inside starts
-    ``pad_s`` after the window opens, and which closes ``pad_s`` after the
-    device has finished it. Yields the profiler."""
+    ``pad_s`` after the window opens, after sentinel kernels on the
+    device, and which closes ``pad_s`` after the device has finished it
+    and sentinels behind it. Yields the profiler's results without the
+    sentinels (``key_averages`` and ``events``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(pad_s)
-        yield prof
+        _sentinels()
+        yield _Window(prof)
+        _sentinels()
         torch.cuda.synchronize()
         time.sleep(pad_s)
 

@@ -68,3 +68,20 @@ def test_the_walk_covers_the_parallel_modules_and_the_launcher():
               for r, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")}
     assert {"parallel/mesh.py", "parallel/collectives.py",
             "launch_multihost.py"} <= walked
+
+
+def test_the_walk_covers_the_data_and_remat_modules():
+    """The two checks above reach the manifest preprocessing, the native
+    loader's bridge, the MAC counter and the checkpoint-policy probe; the
+    loader's C++ source includes no zlib."""
+    import pkgutil
+
+    import tdanet_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                    "tdanet_tpu_torch.")}
+    assert {"tdanet_tpu_torch.datas.preprocess",
+            "tdanet_tpu_torch.datas.native_loader",
+            "tdanet_tpu_torch.utils.profiling",
+            "tdanet_tpu_torch.probes.train_remat"} <= names
+    with open(os.path.join(PKG, "native", "loader.cc")) as f:
+        assert "zlib" not in f.read()
