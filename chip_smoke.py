@@ -277,6 +277,16 @@ exit code is not 0:
      and AsyncBatchServer(mesh=...) on 12 requests of 1-4 s against the
      server without a mesh (>= 60 dB each; 2 x 512 launches a graph, one
      graph a replica and bucket); the phase's seconds.
+  28. the studies on phase 16's best_model.pth (probes/studies.py): the
+     convergence-corpus generator at n_train 16 (dev and tt 100 each), one
+     native-loader batch of it equal to the plain draws; early exit,
+     progressive depth and 8-bit activation storage through their mains
+     at n 8, batch 8, bf16, short timing loops: every printed line with
+     its keys and finite values, #1's launches exactly 32 a block
+     iteration of the study's forwards (from 0 before each); #1 against
+     plain at every site they ran (bf16 over fp32 parameters, >= 40 dB);
+     store_activation on the card equal to the CPU bit for bit (fp32,
+     bf16; int8, fp8_e4m3 with its NaN past 464, fp8_e5m2).
 Every phase header prints the seconds since the script started.
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
@@ -313,7 +323,7 @@ from tdanet_tpu_torch.models import (
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
     deploy_path, dp_path, dw_backward, dw_sites, era, eval_path, hybrid,
-    mosaic_ops, mosaic_ops2, serve_path, train_remat, train_step,
+    mosaic_ops, mosaic_ops2, serve_path, studies, train_remat, train_step,
     uconv_halves, uconv_kernel, variants)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.probes.train_step import tone_mix
@@ -1367,6 +1377,10 @@ def main():
         phase(f"27 data parallelism (launch counts from 0; card: {card})")
         parallel = dp_path.drive_dp(card, tmp, data=data)
         torch.cuda.synchronize()
+        phase("28 the studies on phase 16's model (launch counts from 0)")
+        studied = studies.drive_studies(
+            os.path.join(tmp, "exp", "best_model.pth"), tmp)
+        torch.cuda.synchronize()
     print(json.dumps({"eval": evaluated, "css": css}))
     print(json.dumps({"serve": serve, "serve_times": serve_times}))
     print(json.dumps({"variants": family, "variant_training":
@@ -1374,6 +1388,7 @@ def main():
     print(json.dumps({"era": era_family, "era_training": era_training}))
     print(json.dumps({"deploy": deployed}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"studies": studied}))
     kernels[0]["train_launches"] = train_launches[0]
     kernels[0]["eval_launches"] = evaluated["eval_launches"]
     kernels[0]["css_launches"] = css["css_launches"]
@@ -1408,6 +1423,10 @@ def main():
     # (b) and (a)'s NCCL step (both 512 forward), an audio_train rank of
     # (c), audio_test --dp 2 of (d) and the mesh server's set-ups
     kernels[0]["ddp_launches"] = parallel["dw_launches"]
+    # phase 28: #1's launches in each study's run
+    kernels[0]["studies_launches"] = {
+        k: studied[k]["launches"]
+        for k in ("early_exit", "progressive", "act_quant")}
     backward_entry["ddp_launches"] = parallel["backward_launches"]
     kernels.append(backward_entry)
     print(f"total: {time.perf_counter() - T_START:.1f} s")

@@ -402,25 +402,30 @@ class UConvBlock(nn.Module):
 
     # The stages between the JAX package's remat landmarks (its
     # ``pyr_scale``, ``ga_out`` and ``fused_scale`` tags), which
-    # ``Recurrent(remat="scales")`` checkpoints one by one.
+    # ``Recurrent(remat="scales")`` checkpoints one by one. Each landmark
+    # passes through ``ops.store_activation``, as in the JAX block: the
+    # identity unless ``ops.act_storage`` is on in this thread.
 
     def pyramid_scales(self, x):
-        """The projection and the depth pyramid: the depth scales."""
+        """The projection and the depth pyramid: the depth scales (each
+        stored after the whole pyramid has run, as JAX orders it)."""
         output = [self.spp_dw[0](self.proj_1x1(x))]
         for k in range(1, self.depth):
             output.append(self.spp_dw[k](output[-1]))
-        return output
+        return [ops.store_activation(o) for o in output]
 
     def global_feature(self, output, per_utterance=False, training=False,
                        generator=None, dp_group=None):
         """The scales pooled to the coarsest length and summed, then GA."""
-        return self.globalatt(self._pooled(output), per_utterance, training,
-                              generator, dp_group)
+        return ops.store_activation(self.globalatt(
+            self._pooled(output), per_utterance, training, generator,
+            dp_group))
 
     def fusions(self, output, global_f, n):
         """The LA fusions of the first ``n`` scales with the global
         feature."""
-        return [self.loc_glo_fus[i](output[i], global_f) for i in range(n)]
+        return [ops.store_activation(self.loc_glo_fus[i](output[i], global_f))
+                for i in range(n)]
 
     def expansion(self, x_fused):
         """The top-down LA expansion over the fused scales and res_conv
@@ -454,8 +459,8 @@ class UConvBlock(nn.Module):
              training=False, generator=None, dp_group=None):
         """The block's second half: GA, LA fusion (every scale's, the
         coarsest one's too), expansion, res_conv."""
-        global_f = self.globalatt(global_f, per_utterance, training,
-                                  generator, dp_group)
+        global_f = ops.store_activation(self.globalatt(
+            global_f, per_utterance, training, generator, dp_group))
         return self.expansion(self.fusions(output, global_f, self.depth)) \
             + residual
 
@@ -634,7 +639,14 @@ class Recurrent(nn.Module):
 
     In training every iteration draws its dropout masks from a generator of
     its own, seeded from ``generator`` before the iteration starts, so a
-    recomputed iteration or stage draws the same masks."""
+    recomputed iteration or stage draws the same masks.
+
+    8-bit activation storage (``ops.act_storage``, an inference study):
+    the carry of every iteration after the first, and UConvBlock's scales,
+    GA output and fusions, pass through ``ops.store_activation``, as the
+    JAX package's landmarks do. The mode is read as the forward runs, so a
+    CUDA graph or a ``torch.export`` program keeps the mode that was set
+    when it was captured."""
 
     def __init__(self, out_channels=128, in_channels=512, upsampling_depth=4,
                  _iter=4, fixed_mha=False, remat=False, block=None):
@@ -676,6 +688,8 @@ class Recurrent(nn.Module):
         for i in range(it_count):
             x = iteration(x, mixture, i > 0, per_utterance, training,
                           _draw_seed(generator, training), dp_group)
+            if i > 0:  # the carry of iterations 2.., as JAX's scan stores it
+                x = ops.store_activation(x)
         return x
 
     def _iteration_scales(self, x, mixture, concat, per_utterance,
@@ -720,8 +734,8 @@ class Recurrent(nn.Module):
         prev = x = self._iteration(x, mixture, False, per_utterance, False,
                                    None)
         for _ in range(it_count - 1):
-            prev, x = x, self._iteration(x, mixture, True, per_utterance,
-                                         False, None)
+            prev, x = x, ops.store_activation(self._iteration(
+                x, mixture, True, per_utterance, False, None))
         dims = tuple(range(1, x.ndim))
         delta = (x - prev).square().sum(dims).sqrt() / (
             x.square().sum(dims).sqrt() + 1e-8)
@@ -742,7 +756,8 @@ class Recurrent(nn.Module):
                 f"n_iter range [1, {self.iter}]")
         x = carry
         for _ in range(n_more):
-            x = self._iteration(x, mixture, True, per_utterance, False, None)
+            x = ops.store_activation(self._iteration(
+                x, mixture, True, per_utterance, False, None))
         return x
 
     def _iteration(self, x, mixture, concat, per_utterance, training, seed,

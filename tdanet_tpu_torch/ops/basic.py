@@ -12,6 +12,7 @@ the two agree in float64.
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -328,3 +329,75 @@ def multi_head_attention(q, k, v, in_proj_weight, in_proj_bias,
     ctx = ctx.transpose(0, 1).reshape(L, N, E)
     return F.linear(ctx, out_proj_weight.to(q.dtype),
                     out_proj_bias.to(q.dtype))
+
+
+# ---------------------------------------------------------------------------
+# 8-bit activation storage (an inference study, the JAX package's
+# ``ops.act_storage``): the recurrence's landmark tensors (the pyramid's
+# scales, GA's output, the fusions, the carry) quantised and dequantised
+# where ``store_activation`` stands in UConvBlock and Recurrent.
+# ---------------------------------------------------------------------------
+
+ACT_STORAGE_MODES = (None, "int8", "fp8_e4m3", "fp8_e5m2")
+# the mode of every thread that has not entered ``act_storage``
+ACT_STORAGE_DTYPE = None
+_ACT_TLS = threading.local()
+_UNSET = object()
+# float8_e4m3fn's largest value is 448; the JAX package's cast (ml_dtypes)
+# rounds to nearest even and gives NaN where that rounding overflows, i.e.
+# above 464, the midpoint to the next step (480), where torch saturates
+_E4M3_NAN_ABOVE = 464.0
+
+
+def act_storage_mode():
+    """The activation-storage mode of the current thread: its innermost
+    :class:`act_storage`, else ``ACT_STORAGE_DTYPE``."""
+    return getattr(_ACT_TLS, "mode", ACT_STORAGE_DTYPE)
+
+
+class act_storage:
+    """Context manager: run model code with 8-bit storage of the
+    recurrence's landmark activations, ``"int8"`` (a dynamic per-tensor
+    absmax scale), ``"fp8_e4m3"`` or ``"fp8_e5m2"`` (plain casts), or None
+    (off). Thread-local: another thread keeps its own mode. The mode is
+    read when a forward runs, so a CUDA graph or a ``torch.export`` program
+    keeps the mode that was set when it was captured. Inference only: the
+    int8 rounding has a zero gradient."""
+
+    def __init__(self, dtype="int8"):
+        if dtype not in ACT_STORAGE_MODES:
+            raise ValueError(f"unsupported act storage dtype {dtype!r}")
+        self.dtype = dtype
+
+    def __enter__(self):
+        self._saved = getattr(_ACT_TLS, "mode", _UNSET)
+        _ACT_TLS.mode = self.dtype
+        return self
+
+    def __exit__(self, *exc):
+        if self._saved is _UNSET:
+            del _ACT_TLS.mode
+        else:
+            _ACT_TLS.mode = self._saved
+        return False
+
+
+def store_activation(x):
+    """``x`` quantised and dequantised in the current thread's
+    :func:`act_storage_mode`, in x's dtype; ``x`` itself when it is off.
+    int8: ``scale = max|x| / 127 + 1e-12`` in x's dtype, then
+    ``clip(round(x / scale), -127, 127) * scale`` (round half to even);
+    fp8: a cast there and back, with the JAX package's NaN above 464 for
+    float8_e4m3fn (torch's cast saturates at 448)."""
+    mode = act_storage_mode()
+    if mode is None:
+        return x
+    if mode == "int8":
+        scale = x.abs().max() / 127.0 + 1e-12
+        q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        return q.to(x.dtype) * scale
+    if mode == "fp8_e5m2":
+        return x.to(torch.float8_e5m2).to(x.dtype)
+    y = x.to(torch.float8_e4m3fn).to(x.dtype)
+    return torch.where(x.abs() > _E4M3_NAN_ABOVE,
+                       torch.full_like(y, float("nan")), y)

@@ -18,5 +18,7 @@ models, the flagship's training and times), and the deployment slice's
 ``deploy_path`` (bundles exported, served and held against their models;
 its serving half ``deploy_serve`` runs in a fresh interpreter;
 ``export_parity`` finds the first op where an exported program and its
-model part). Run each as
+model part), and the studies slice's ``studies`` (the corpus generator
+and the three studies on the card, with #1's launches held exact). Run
+each as
 ``python -m tdanet_tpu_torch.probes.<name> [options]``."""

@@ -32,7 +32,8 @@ from tdanet_tpu_torch.utils.separator import (PREFETCH_BATCHES,
 
 
 def separate_progressive(model, mixes, depth1=8, depth_full=None,
-                         threshold=0.05, batch_size=8, mesh=None):
+                         threshold=0.05, batch_size=8, compute_dtype=None,
+                         mesh=None):
     """Adaptive-depth separation of ``mixes`` (N, T), mixtures of one
     length, on the model's device: the stage-1 sweep in batches of
     ``batch_size``, the threshold census, the gather of the escalated rows
@@ -40,7 +41,10 @@ def separate_progressive(model, mixes, depth1=8, depth_full=None,
     (N, n_src, T) numpy in input order, in the model's dtype (bf16 upcast
     to float32); ``info`` holds each utterance's ``delta`` (in the same
     dtype), the boolean ``escalated`` mask, ``n_escalated`` and the two
-    depths.
+    depths. ``compute_dtype`` (e.g. torch.bfloat16) is the activations'
+    dtype, as ``TDANetBest.forward`` takes it: stage 1 runs in it and
+    stage 2 continues its state; the estimates and deltas are then in it
+    (bf16 upcast to float32).
 
     ``threshold``: escalate the utterances whose delta is above it; 0 or
     below escalates all of them (the full-depth forward, for A/Bs),
@@ -56,11 +60,11 @@ def separate_progressive(model, mixes, depth1=8, depth_full=None,
         from tdanet_tpu_torch.parallel import dp_batch_setup
         rows, replicas = dp_batch_setup(mesh, batch_size, model)
     return _progressive(model, mixes, depth1, depth_full, threshold,
-                        batch_size, rows, replicas)
+                        batch_size, rows, replicas, compute_dtype)
 
 
 def _progressive(model, mixes, depth1, depth_full, threshold, batch_size,
-                 rows=None, replicas=None):
+                 rows=None, replicas=None, compute_dtype=None):
     """:func:`separate_progressive` on one device, or over ``replicas``
     (each running its ``rows`` of a batch) when they are given."""
     if not hasattr(model, "forward_stage1"):
@@ -83,7 +87,8 @@ def _progressive(model, mixes, depth1, depth_full, threshold, batch_size,
     rest = model.pad_rest(T)
 
     def stage1(rep, xb):
-        return rep.forward_stage1(xb, depth1, per_utterance=True)
+        return rep.forward_stage1(xb, depth1, per_utterance=True,
+                                  compute_dtype=compute_dtype)
 
     def stage2(rep, st):
         return rep.forward_stage2(st, n_more, rest, per_utterance=True)
@@ -200,7 +205,7 @@ def progressive_loop(stage1, stage2, mixes, batch_size, threshold, device,
 def separate_progressive_stream(model, lengths, get_item, depth1=8,
                                 depth_full=None, threshold=0.05,
                                 batch_size=8, group_size=None, stats=None,
-                                mesh=None):
+                                compute_dtype=None, mesh=None):
     """Adaptive-depth eval stream over variable-length utterances, the
     progressive counterpart of
     :func:`tdanet_tpu_torch.utils.separator.separate_batched_stream`, with
@@ -215,8 +220,10 @@ def separate_progressive_stream(model, lengths, get_item, depth1=8,
 
     ``stats`` (optional dict) is updated in place with the escalation
     census: ``n``, ``n_escalated``, ``delta_sum``, ``delta_mean``,
-    ``depth1``, ``depth_full``. ``mesh``: dp scale-out, passed to
-    :func:`separate_progressive` (``batch_size`` a multiple of dp)."""
+    ``depth1``, ``depth_full``. ``compute_dtype``: the activations' dtype,
+    as :func:`separate_progressive` takes it. ``mesh``: dp scale-out,
+    passed to :func:`separate_progressive` (``batch_size`` a multiple of
+    dp)."""
     rows = replicas = None
     if mesh is not None:  # one set-up for the whole stream
         from tdanet_tpu_torch.parallel import dp_batch_setup
@@ -238,7 +245,8 @@ def separate_progressive_stream(model, lengths, get_item, depth1=8,
                 w = np.asarray(it[0], np.float32)
                 mixes[row, :w.shape[-1]] = w
             ests, info = _progressive(model, mixes, depth1, depth_full,
-                                      threshold, batch_size, rows, replicas)
+                                      threshold, batch_size, rows, replicas,
+                                      compute_dtype)
             if stats is not None:
                 stats["n"] += len(chunk)
                 stats["n_escalated"] += info["n_escalated"]

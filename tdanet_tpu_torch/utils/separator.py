@@ -34,11 +34,14 @@ def to_numpy(t):
     return t.to(torch.promote_types(t.dtype, torch.float32)).cpu().numpy()
 
 
-def separate(model, wav, lattice=None, num_blocks=None):
+def separate(model, wav, lattice=None, num_blocks=None, compute_dtype=None):
     """wav: (T,) or (B, T) numpy or torch -> separated (n_src, T) or
     (B, n_src, T), numpy for numpy input.
 
-    Runs on the model's device, in its dtype. A 2-D input is one batch and
+    Runs on the model's device, in its dtype, or with activations in
+    ``compute_dtype`` (e.g. torch.bfloat16; the parameters read as they
+    are, as ``TDANetBest.forward`` takes it), the result then renormalised
+    in float32. A 2-D input is one batch and
     keeps the reference's batch-axis attention across its rows, as the JAX
     package's ``separate`` does; use :func:`separate_batched` for
     independent utterances."""
@@ -54,7 +57,8 @@ def separate(model, wav, lattice=None, num_blocks=None):
     target = -(-T // lattice) * lattice
     with torch.inference_mode():
         xp = torch.nn.functional.pad(x, (0, target - T))
-        out = model(xp, **depth_kw(num_blocks))[..., :T]
+        out = model(xp, compute_dtype=compute_dtype,
+                    **depth_kw(num_blocks))[..., :T]
         # per-utterance energy renormalisation over the true region
         scale = x.abs().sum(-1)[:, None, None] / (
             out.abs().sum((-1, -2))[:, None, None] + 1e-8)
