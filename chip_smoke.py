@@ -287,6 +287,28 @@ exit code is not 0:
      plain at every site they ran (bf16 over fp32 parameters, >= 40 dB);
      store_activation on the card equal to the CPU bit for bit (fp32,
      bf16; int8, fp8_e4m3 with its NaN past 464, fp8_e5m2).
+  29. every optimizer name, the AV loader and an n_src=6 step
+     (probes/train_options.py), from #1's launch counts at 0: (a) the 32
+     names of the optimizer factory, 3 steps each from the recipe model's
+     parameters (16 blocks at full width) with the gradients of one
+     backward (B 2, 1 s, fp32), -0.5 of them and a seeded permutation,
+     the learning rate halved before the third, clip 5, against the same
+     code in float64 on the CPU: the parameter change's SNR within 10 dB
+     of the floor that fp32 storage sets for each name, Lion's sign flips
+     at most 1e-5 of the elements; (b) each name's step() ms on the 2.34 M
+     parameters (median of 5 after 2) and its device kernels in a profiled
+     step held by #1 marks through counted_windows; (c) audio_train on
+     phase 16's corpus with optimizer.optim_name=adafactor, one epoch and
+     a resume for another: the loaded optimizer state equal to the saved
+     one bit for bit, finite losses, #1's launches phase 16's a step and
+     a validation batch; (d) a 6-source TDANetBest at 4 blocks (recipe
+     widths), B 2, 1 s, fp32: the Hungarian assignments equal CPU
+     float64's, the loss within 1e-3 dB, every gradient >= 50 dB at the
+     card's kinks, the train step's ms; (e) an audio-visual split written
+     here (stored and deflated float32 archives, stored uint8; 88 x 88
+     mouth frames): every native AV batch equal to the dataset's items and
+     the plain draws, a garbled archive raising with its path; and
+     scripts.profile_train (scales, adafactor, 2 steps) on the card.
 Every phase header prints the seconds since the script started.
 The kernels are built at first use from tdanet_tpu_torch/csrc, all sources
 at once in phase 2. The last two lines are the kernels' JSON record and
@@ -323,8 +345,8 @@ from tdanet_tpu_torch.models import (
 from tdanet_tpu_torch.kernels import dw_conv_glob_ln as dw
 from tdanet_tpu_torch.probes import (
     deploy_path, dp_path, dw_backward, dw_sites, era, eval_path, hybrid,
-    mosaic_ops, mosaic_ops2, serve_path, studies, train_remat, train_step,
-    uconv_halves, uconv_kernel, variants)
+    mosaic_ops, mosaic_ops2, serve_path, studies, train_options,
+    train_remat, train_step, uconv_halves, uconv_kernel, variants)
 from tdanet_tpu_torch.probes.dw_sites import SCALES, VARIANTS, site_inputs
 from tdanet_tpu_torch.probes.train_step import tone_mix
 from tdanet_tpu_torch.utils import separate, separate_batched
@@ -1065,7 +1087,7 @@ def drive_train_slice(card, tmp):
                                 for p, r in steps.items()},
         "train_step_profiled": {
             p: {k: r["profile"][k] for k in ("kernels", "device_ms",
-                                             "wall_ms")}
+                                             "wall_ms", "ranges_ms")}
             for p, r in steps.items()}}, train_launches, data
 
 
@@ -1093,7 +1115,8 @@ def main():
         so, seconds = loader.result()
     print(f"built {len(SOURCES)} sources and the native loader in "
           f"{time.perf_counter() - t0:.2f} s wall")
-    print(f"  {os.path.relpath(so)}: g++ {seconds:.2f} s")
+    print(f"  {os.path.relpath(so)}: g++ {seconds:.2f} s, zlib linked "
+          f"({' '.join(native_loader.LIBS)}) for the AV .npz reader")
     for so, seconds, report in built:
         print(f"  {os.path.relpath(so)}: nvcc {seconds:.2f} s")
         entry = spill = ""
@@ -1381,6 +1404,10 @@ def main():
         studied = studies.drive_studies(
             os.path.join(tmp, "exp", "best_model.pth"), tmp)
         torch.cuda.synchronize()
+        phase("29 every optimizer name, the AV loader and an n_src=6 step "
+              f"(launch counts from 0; card: {card})")
+        options = train_options.drive_phase(card, tmp, data)
+        torch.cuda.synchronize()
     print(json.dumps({"eval": evaluated, "css": css}))
     print(json.dumps({"serve": serve, "serve_times": serve_times}))
     print(json.dumps({"variants": family, "variant_training":
@@ -1389,6 +1416,7 @@ def main():
     print(json.dumps({"deploy": deployed}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"studies": studied}))
+    print(json.dumps({"train_options": options}))
     kernels[0]["train_launches"] = train_launches[0]
     kernels[0]["eval_launches"] = evaluated["eval_launches"]
     kernels[0]["css_launches"] = css["css_launches"]
@@ -1427,7 +1455,17 @@ def main():
     kernels[0]["studies_launches"] = {
         k: studied[k]["launches"]
         for k in ("early_exit", "progressive", "act_quant")}
+    # phase 29: #1's (forward, backward) launches over (c)'s two
+    # audio_train runs with adafactor, and the 6-source step of (d)
+    adafactor = options["adafactor_training"]
+    runs = (adafactor["run0_launches"], adafactor["run1_launches"])
+    kernels[0]["optim_train_launches"] = [r[0] for r in runs]
+    kernels[0]["many_sources_launches"] = \
+        options["many_sources"]["dw_launches"][0]
     backward_entry["ddp_launches"] = parallel["backward_launches"]
+    backward_entry["optim_train_launches"] = [r[1] for r in runs]
+    backward_entry["many_sources_launches"] = \
+        options["many_sources"]["dw_launches"][1]
     kernels.append(backward_entry)
     print(f"total: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -38,24 +38,26 @@ def normalize_wav(wav, std=None, eps=EPS):
 
 class SeparationDataset:
     """Generic n-src manifest dataset (the Libri2Mix/LRS2/WHAM/WSJ0 pattern;
-    only the mix manifest name differs: mix_clean/mix/mix_both). Audio
-    only: the JAX package's audio-visual items (mouth crops) are not
-    ported."""
+    only the mix manifest name differs: mix_clean/mix/mix_both). With
+    ``audio_only=False`` each source row carries a mouth-crop ``.npz`` at
+    index 1 and an item is ``(mixture, sources, mouths, name)``."""
 
     def __init__(self, json_dir, mix_key="mix_clean", n_src=2,
                  sample_rate=8000, segment=4.0, normalize_audio=False,
-                 source_keys=None, audio_only=True):
+                 source_keys=None, audio_only=True, fps=25,
+                 mouth_preprocess=None):
         if not json_dir:
             raise ValueError("JSON DIR is None!")
-        if not audio_only:
-            raise ValueError("audio-visual data (audio_only=False) is not "
-                             "ported")
         self.json_dir = json_dir
         self.sample_rate = sample_rate
         self.normalize_audio = normalize_audio
         self.n_src = n_src
         self.seg_len = None if segment is None else int(segment * sample_rate)
         self.test = self.seg_len is None
+        # audio-visual branch (lrs2datamodule.py:180-247)
+        self.audio_only = audio_only
+        self.fps_len = None if segment is None else int(segment * fps)
+        self.mouth_preprocess = mouth_preprocess or (lambda a: a)
         # n_src=1 still reads BOTH s1/s2 manifests: the reference
         # hardcodes sources_json to ["s1", "s2"] for n_src in (1, 2)
         # (libri2mixdatamodule.py:57-60) and expands each utterance
@@ -122,6 +124,13 @@ class SeparationDataset:
             m_std = mixture.std(-1, keepdims=True)
             mixture = normalize_wav(mixture, std=m_std)
             sources = normalize_wav(sources, std=m_std)
+        if not self.audio_only:
+            # the JAX package's quirk, kept: frames from 0 whatever the
+            # audio crop's start, truncated to fps_len and not padded
+            mouths = np.stack([
+                self.mouth_preprocess(np.load(src[idx][1])["data"])
+                for src in self.sources])[:, :self.fps_len]
+            return mixture, sources, mouths, os.path.basename(path)
         return mixture, sources, os.path.basename(path)
 
 

@@ -55,7 +55,7 @@ class _ManifestDataModule:
             json_dir, mix_key=self.MIX_KEY, n_src=self.n_src,
             sample_rate=self.sample_rate, segment=segment,
             normalize_audio=self.normalize_audio,
-            audio_only=self.audio_only)
+            audio_only=self.audio_only, fps=getattr(self, "fps", 25))
 
     def setup(self):
         self.data_train = self._make(self.train_dir, self.segment)
@@ -101,7 +101,11 @@ class WhamDataModule(_ManifestDataModule):
 
 
 class LRS2DataModule(_ManifestDataModule):
-    MIX_KEY = "mix"         # lrs2datamodule.py:57 (audio only here)
+    MIX_KEY = "mix"         # lrs2datamodule.py:57
+
+    def __init__(self, *args, fps=25, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.fps = fps      # audio-visual mouth-crop framerate (lrs2:34,54)
 
 
 class WSJ0DataModule(_ManifestDataModule):

@@ -9,11 +9,18 @@ queue; each batch comes out as ``(mix (B, T), sources (B, n_src, T),
 names)`` with every name ``""`` and no normalisation (the JAX wrapper's
 tuple: ``normalize_audio`` is not applied on this path there either).
 
+Over an audio-visual dataset (``audio_only=False``) each batch is
+``(mix, sources, mouths (B, n_src, fps_len, h, w) float32, names)``: the
+loader reads every source's mouth crops from its ``.npz`` (stored or
+deflated ``data.npy``, float32, float64 or uint8), truncated or
+zero-padded on the frame axis. A batch with an archive that cannot be read
+raises, naming the file.
+
 The library is built with ``g++`` at first use into
 ``build/tdanet_tpu_torch/`` at the root of the checkout, its file named by
-a hash of the source and the flags, and needs only the C++ standard
-library. A failed build raises with the compiler's stderr; nothing falls
-back to the Python ``Loader``, whose batches differ.
+a hash of the source and the flags, and needs the C++ standard library and
+zlib (``-lz``). A failed build raises with the compiler's stderr; nothing
+falls back to the Python ``Loader``, whose batches differ.
 
 The plain version (:func:`epoch_order`, :func:`crop_starts`,
 :func:`plain_batches`) repeats the loader's draws in Python from the same
@@ -38,6 +45,8 @@ from tdanet_tpu_torch.utils.audio_io import read_wav
 SOURCE = Path(__file__).resolve().parent.parent / "native" / "loader.cc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdanet_tpu_torch"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread"]
+#: after the source, so that the linker keeps them
+LIBS = ["-lz"]
 _MASK = (1 << 64) - 1
 _LIBS: dict = {}
 
@@ -45,7 +54,7 @@ _LIBS: dict = {}
 def library_path(build_dir=None) -> Path:
     """The library's path: named by a hash of the source and the flags."""
     h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(" ".join(CXX_FLAGS + LIBS).encode())
     return Path(build_dir or BUILD_DIR) / \
         f"libtdanet_loader-{h.hexdigest()[:16]}.so"
 
@@ -63,7 +72,7 @@ def build_library(cxx="g++", build_dir=None) -> Path:
             f"the native loader needs a C++ compiler: {cxx!r} not found")
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [found, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [found, *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *LIBS]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -95,6 +104,22 @@ def load_library(cxx="g++", build_dir=None):
     lib.tdanet_loader_start_epoch.argtypes = [ctypes.c_void_p,
                                               ctypes.c_uint64]
     lib.tdanet_loader_destroy.argtypes = [ctypes.c_void_p]
+    lib.tdanet_loader_error.restype = ctypes.c_char_p
+    lib.tdanet_loader_error.argtypes = [ctypes.c_void_p]
+    lib.tdanet_loader_create_av.restype = ctypes.c_void_p
+    lib.tdanet_loader_create_av.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    lib.tdanet_loader_next_av.restype = ctypes.c_int
+    lib.tdanet_loader_next_av.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float)]
+    lib.tdanet_npz_mouth_dims.restype = ctypes.c_int
+    lib.tdanet_npz_mouth_dims.argtypes = [ctypes.c_char_p,
+                                          ctypes.POINTER(ctypes.c_int64)]
     _LIBS[so] = lib
     return lib
 
@@ -108,13 +133,23 @@ def native_available() -> bool:
     return True
 
 
-def _paths(dataset, n_src):
-    """The manifest's mixture paths, its sources' paths item-major, and
-    the lengths."""
+def _paths(dataset, n_src, column=0):
+    """The manifest's mixture paths, its sources' paths (``column`` 1: the
+    mouth archives) item-major, and the lengths."""
     mix = [info[0].encode() for info in dataset.mix]
-    src = [dataset.sources[s][i][0].encode()
+    src = [dataset.sources[s][i][column].encode()
            for i in range(len(dataset.mix)) for s in range(n_src)]
     return mix, src, np.asarray([info[1] for info in dataset.mix], np.int64)
+
+
+def mouth_dims(path, lib=None):
+    """The (frames, h, w) of an archive's ``data`` array, read by the
+    library; raises naming the file if it cannot be read."""
+    lib = lib or load_library()
+    dims = (ctypes.c_int64 * 3)()
+    if not lib.tdanet_npz_mouth_dims(os.fsencode(path), dims):
+        raise RuntimeError(f"cannot read the mouth archive {path!r}")
+    return tuple(int(d) for d in dims)
 
 
 class NativeLoader:
@@ -136,13 +171,23 @@ class NativeLoader:
             raise ValueError("NativeLoader requires a fixed segment length")
         self.n_src = dataset.n_src
         self.epoch = 0
+        self.audio_only = getattr(dataset, "audio_only", True)
         mix, src, lengths = _paths(dataset, self.n_src)
-        self._handle = lib.tdanet_loader_create(
-            (ctypes.c_char_p * len(mix))(*mix),
-            (ctypes.c_char_p * len(src))(*src),
-            lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            len(mix), self.n_src, self.seg, batch_size,
-            1 if shuffle else 0, seed, num_workers, prefetch)
+        args = ((ctypes.c_char_p * len(mix))(*mix),
+                (ctypes.c_char_p * len(src))(*src))
+        common = (lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                  len(mix), self.n_src, self.seg, batch_size,
+                  1 if shuffle else 0, seed, num_workers, prefetch)
+        if self.audio_only:
+            self._handle = lib.tdanet_loader_create(*args, *common)
+            return
+        mouths = _paths(dataset, self.n_src, column=1)[1]
+        # every archive's frames are (h, w) of the first one's
+        _, self.mh, self.mw = mouth_dims(mouths[0].decode(), lib)
+        self.fps_len = int(dataset.fps_len)
+        self._handle = lib.tdanet_loader_create_av(
+            *args, (ctypes.c_char_p * len(mouths))(*mouths), *common,
+            self.fps_len, self.mh, self.mw)
 
     def __len__(self):
         return int(self._lib.tdanet_loader_n_batches(self._handle))
@@ -156,12 +201,26 @@ class NativeLoader:
         while True:
             mix = np.empty((B, S), np.float32)
             src = np.empty((B, n, S), np.float32)
-            if not self._lib.tdanet_loader_next(
+            if self.audio_only:
+                rc = self._lib.tdanet_loader_next(
                     self._handle, mix.ctypes.data_as(fp),
-                    src.ctypes.data_as(fp)):
+                    src.ctypes.data_as(fp))
+            else:
+                mouth = np.empty((B, n, self.fps_len, self.mh, self.mw),
+                                 np.float32)
+                rc = self._lib.tdanet_loader_next_av(
+                    self._handle, mix.ctypes.data_as(fp),
+                    src.ctypes.data_as(fp), mouth.ctypes.data_as(fp))
+            if rc < 0:
+                path = self._lib.tdanet_loader_error(self._handle).decode()
+                raise RuntimeError(f"cannot read the mouth archive {path!r}")
+            if rc == 0:
                 break
             NativeLoader.delivered += 1
-            yield mix, src, [""] * B
+            if self.audio_only:
+                yield mix, src, [""] * B
+            else:
+                yield mix, src, mouth, [""] * B
 
     def __del__(self):
         if getattr(self, "_handle", None):
@@ -234,10 +293,20 @@ def _segment(path, start, seg):
     return np.pad(data, (0, seg - data.shape[0]))
 
 
+def _mouth(path, fps_len):
+    """An archive's ``data`` frames as float32, truncated or zero-padded
+    to ``fps_len``."""
+    with np.load(path) as archive:
+        data = archive["data"][:fps_len].astype(np.float32)
+    pad = [(0, fps_len - data.shape[0])] + [(0, 0)] * (data.ndim - 1)
+    return np.pad(data, pad)
+
+
 def plain_batches(dataset, batch_size, shuffle=False, seed=0, epoch=0):
     """Epoch ``epoch`` of :class:`NativeLoader` over ``dataset`` in plain
-    Python: the same (mix, sources, names) batches from the same draws,
-    read through ``utils/audio_io``."""
+    Python: the same (mix, sources, names) batches, or (mix, sources,
+    mouths, names) over an audio-visual dataset, from the same draws, read
+    through ``utils/audio_io`` and ``numpy.load``."""
     seg, n_src = dataset.seg_len, dataset.n_src
     order = epoch_order(len(dataset.mix), shuffle, seed, epoch)
     for b in range(len(order) // batch_size):
@@ -249,4 +318,10 @@ def plain_batches(dataset, batch_size, shuffle=False, seed=0, epoch=0):
         src = np.stack([[_segment(dataset.sources[k][i][0], s, seg)
                          for k in range(n_src)]
                         for i, s in zip(items, starts)])
-        yield mix, src, [""] * batch_size
+        if getattr(dataset, "audio_only", True):
+            yield mix, src, [""] * batch_size
+            continue
+        mouths = np.stack([[_mouth(dataset.sources[k][i][1],
+                                   dataset.fps_len) for k in range(n_src)]
+                           for i in items])
+        yield mix, src, mouths, [""] * batch_size

@@ -36,6 +36,7 @@ from tdanet_tpu_torch.system.optimizers import make_optimizer
 from tdanet_tpu_torch.system.trainer import (create_train_state,
                                              make_train_step)
 from tdanet_tpu_torch.utils.timing import (card_line, counted_windows,
+                                           device_kernels, device_ranges,
                                            profiled, snr_db)
 
 RECIPE = dict(out_channels=128, in_channels=512, num_blocks=16,
@@ -45,16 +46,18 @@ FORWARD_NAME = "dw_conv_glob_ln_kernel"    # device kernels of #1
 BACKWARD_NAME = "dw_conv_glob_ln_backward_kernel"
 
 
-def tone_batch(B, seconds=3.0, sr=8000, seed=0):
-    """(mixtures (B, T), sources (B, 2, T)): two tones plus noise a row."""
+def tone_batch(B, seconds=3.0, sr=8000, seed=0, n_src=2, device="cuda"):
+    """(mixtures (B, T), sources (B, n_src, T)) on ``device``: n_src tones
+    plus noise a row."""
     rng = np.random.default_rng(seed)
     T = int(seconds * sr)
     t = np.arange(T) / sr
     src = np.stack([np.stack([
         0.3 * np.sin(2 * np.pi * rng.uniform(80, 400) * t
                      + rng.uniform(0, 6)) + 0.02 * rng.standard_normal(T)
-        for _ in range(2)]) for _ in range(B)]).astype(np.float32)
-    return torch.from_numpy(src.sum(1)).cuda(), torch.from_numpy(src).cuda()
+        for _ in range(n_src)]) for _ in range(B)]).astype(np.float32)
+    src = torch.from_numpy(src).to(device)
+    return src.sum(1), src
 
 
 def tone_mix(seconds, seed, sr=16000):
@@ -91,9 +94,10 @@ def write_split(root, n, seed, seconds=3.5, sr=8000, manifests=True):
             json.dump(rows, f)
 
 
-def setup(remat, seed=0, model="TDANetBest", **overrides):
+def setup(remat, seed=0, model="TDANetBest",
+          compute_dtype=torch.bfloat16, **overrides):
     """(state, step) of the recipe's widths on the card for the registered
-    ``model``, weights from ``seed``."""
+    ``model``, weights from ``seed``, activations in ``compute_dtype``."""
     from tdanet_tpu_torch import models
     model = models.get(model)(**{**RECIPE, **overrides}, remat=remat)
     tx = make_optimizer("adam", lr=2e-3, grad_clip=5.0)
@@ -102,7 +106,7 @@ def setup(remat, seed=0, model="TDANetBest", **overrides):
                                device="cuda")
     step = make_train_step(model, PITLossWrapper(pairwise_neg_snr,
                                                  threshold_byloss=True), tx,
-                           compute_dtype=torch.bfloat16)
+                           compute_dtype=compute_dtype)
     return state, step
 
 
@@ -372,14 +376,18 @@ def policy_name(remat):
 
 
 def time_steps(B, remat, steps=5, warmup=2, model="TDANetBest",
-               profile=False, **overrides):
+               profile=False, seconds=3.0, compute_dtype=torch.bfloat16,
+               **overrides):
     """The step's median ms over ``steps`` after ``warmup``, its runs, the
     peak allocated bytes, and #1's forward and backward launches per
     step, for the registered ``model`` at the recipe's widths (and
-    ``overrides`` of its constructor's arguments); with ``profile``, one
-    more step profiled (:func:`profile_step`)."""
-    state, step = setup(remat, model=model, **overrides)
-    mix, src = tone_batch(B)
+    ``overrides`` of its constructor's arguments) on batches of ``B``
+    ``seconds`` long, activations in ``compute_dtype``; with ``profile``,
+    one more step profiled (:func:`profile_step`)."""
+    state, step = setup(remat, model=model, compute_dtype=compute_dtype,
+                        **overrides)
+    mix, src = tone_batch(B, seconds,
+                          n_src=overrides.get("num_sources", 2))
     for i in range(warmup):
         state, loss = step(state, mix, src,
                            torch.Generator().manual_seed(i))
@@ -399,7 +407,8 @@ def time_steps(B, remat, steps=5, warmup=2, model="TDANetBest",
                ms=statistics.median(runs), runs=runs,
                peak_bytes=torch.cuda.max_memory_allocated(),
                launches_per_step=per_step, loss=loss.item())
-    print(f"{model} train step B={B} 3 s bf16 checkpointing "
+    dtype = {torch.bfloat16: "bf16", torch.float32: "fp32"}[compute_dtype]
+    print(f"{model} train step B={B} {seconds:g} s {dtype} checkpointing "
           f"{policy_name(remat)}: median {row['ms']:.1f} ms (runs "
           f"{[round(r, 1) for r in runs]}), peak "
           f"{row['peak_bytes'] / 2**30:.2f} GiB allocated; #1 launches per "
@@ -425,9 +434,7 @@ def profile_step(state, step, mix, src, want, name):
             step(state, mix, src, torch.Generator().manual_seed(1))
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None)
-                  == torch.autograd.DeviceType.CUDA]
+        events, ranges = device_kernels(prof), device_ranges(prof)
         dev = lambda e: e.self_device_time_total / 1e3  # noqa: E731 (ms)
         pick = lambda name: [e for e in events  # noqa: E731
                              if name in e.key]
@@ -439,6 +446,8 @@ def profile_step(state, step, mix, src, want, name):
                       backward_kernels=sum(e.count for e in bwd),
                       backward_ms=sum(dev(e) for e in bwd),
                       dy_copies=DwConvGlobLnFunction.dy_copies - copies,
+                      ranges=sum(e.count for e in ranges),
+                      ranges_ms=sum(dev(e) for e in ranges),
                       top=[(dev(e), e.count, e.key[:90]) for e in
                            sorted(events, key=dev, reverse=True)[:10]])
         return (result["forward_kernels"] + result["backward_kernels"],
@@ -452,7 +461,9 @@ def profile_step(state, step, mix, src, want, name):
           f"on); #1 forward {result['forward_kernels']} kernels "
           f"{result['forward_ms']:.2f} ms, backward "
           f"{result['backward_kernels']} kernels {result['backward_ms']:.2f}"
-          f" ms; dy copied to x's layout {result['dy_copies']} times "
+          f" ms; dy copied to x's layout {result['dy_copies']} times; "
+          f"left out, {result['ranges']} record_function ranges on the "
+          f"device's timeline, {result['ranges_ms']:.3f} ms "
           f"[{card_line()}]")
     for ms, n, key in result["top"]:
         print(f"  {ms:8.3f} ms {n:5d}x {key}")

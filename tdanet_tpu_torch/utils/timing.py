@@ -129,6 +129,33 @@ def profiled(pad_s=WINDOW_PAD_S):
         time.sleep(pad_s)
 
 
+def _device_rows(prof):
+    """A profiled window's ``key_averages`` rows on CUDA, and the names of
+    its ``record_function`` marks."""
+    marks = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA], marks
+
+
+def device_kernels(prof):
+    """A profiled window's device kernels by name (``key_averages`` rows
+    on CUDA), without the ranges of ``record_function`` marks, which the
+    profiler also reports on the device's timeline: torch.optim wraps every
+    ``step()`` in one ("Optimizer.step#Adam.step"), and its span is not a
+    kernel."""
+    rows, marks = _device_rows(prof)
+    return [e for e in rows if e.key not in marks]
+
+
+def device_ranges(prof):
+    """The rows that :func:`device_kernels` leaves out: the marks' ranges
+    on the device's timeline."""
+    rows, marks = _device_rows(prof)
+    return [e for e in rows if e.key in marks]
+
+
 def profile_window(fn):
     """Run ``fn`` under the profiler: (its return, #1's device kernels,
     all device events' count and ms, the wall ms)."""
@@ -137,9 +164,7 @@ def profile_window(fn):
         ret = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CUDA]
+    events = device_kernels(prof)
     dw = sum(e.count for e in events if "dw_conv_glob_ln" in e.key)
     return (ret, dw, sum(e.count for e in events),
             sum(e.self_device_time_total for e in events) / 1e3, wall)

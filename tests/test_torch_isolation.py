@@ -72,8 +72,9 @@ def test_the_walk_covers_the_parallel_modules_and_the_launcher():
 
 def test_the_walk_covers_the_data_and_remat_modules():
     """The two checks above reach the manifest preprocessing, the native
-    loader's bridge, the MAC counter and the checkpoint-policy probe; the
-    loader's C++ source includes no zlib."""
+    loader's bridge, the MAC counter, the checkpoint-policy probe and the
+    train-step profiler; the loader's C++ source needs zlib (its .npz
+    reader), linked by ``-lz``, which names the built library."""
     import pkgutil
 
     import tdanet_tpu_torch as p
@@ -82,6 +83,15 @@ def test_the_walk_covers_the_data_and_remat_modules():
     assert {"tdanet_tpu_torch.datas.preprocess",
             "tdanet_tpu_torch.datas.native_loader",
             "tdanet_tpu_torch.utils.profiling",
-            "tdanet_tpu_torch.probes.train_remat"} <= names
+            "tdanet_tpu_torch.probes.train_remat",
+            "tdanet_tpu_torch.scripts.profile_train"} <= names
+    from tdanet_tpu_torch.datas import native_loader
     with open(os.path.join(PKG, "native", "loader.cc")) as f:
-        assert "zlib" not in f.read()
+        assert "#include <zlib.h>" in f.read()
+    assert native_loader.LIBS == ["-lz"]
+    real = native_loader.library_path()
+    native_loader.LIBS = []
+    try:
+        assert native_loader.library_path() != real
+    finally:
+        native_loader.LIBS = ["-lz"]

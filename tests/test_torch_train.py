@@ -1,6 +1,6 @@
 """The port's training path against the JAX package's, on the CPU in
 float64: training mode (dropout, drop-path, seeds, checkpointing), a
-5-step lockstep of make_train_step, the optimizers and schedulers, the
+5-step lockstep of make_train_step, the schedulers, the
 best_model.pth interchange, and AudioTrainer.fit end to end with a
 resume."""
 import json
@@ -248,65 +248,7 @@ def test_five_step_lockstep_with_the_jax_train_step(monkeypatch):
     assert moved > 1e-4  # the parameters did move
 
 
-# -- optimizers and schedulers -------------------------------------------
-
-OPTIMIZERS = [("adam", {}), ("adam", {"weight_decay": 1e-2}),
-              ("adamw", {"weight_decay": 0.05}),
-              ("sgd", {"momentum": 0.9, "nesterov": True,
-                       "weight_decay": 1e-3}),
-              ("sgd", {}), ("adadelta", {}), ("adamax", {})]
-
-
-@pytest.mark.parametrize("name,kw", OPTIMIZERS)
-@pytest.mark.parametrize("clip", [None, 1.0])
-def test_optimizer_matches_optax(name, kw, clip):
-    """Each ported name against the JAX package's optax chain for 6 steps
-    on random parameters and gradients (fp64, 1e-12)."""
-    from tdanet_tpu.system import optimizers as jopt
-    rng = np.random.default_rng(3)
-    p0 = {"a": rng.standard_normal((4, 5)), "b": rng.standard_normal(7)}
-    grads = [{k: 3 * rng.standard_normal(v.shape) for k, v in p0.items()}
-             for _ in range(6)]
-    with jax.enable_x64():
-        tx = jopt.make_optimizer(name, lr=0.05, grad_clip=clip, **kw)
-        params = {k: jnp.asarray(v) for k, v in p0.items()}
-        st = tx.init(params)
-        for g in grads:
-            u, st = tx.update({k: jnp.asarray(v) for k, v in g.items()}, st,
-                              params)
-            params = {k: params[k] + u[k] for k in params}
-    ps = {k: torch.nn.Parameter(torch.tensor(v)) for k, v in p0.items()}
-    spec = topt.make_optimizer(name, lr=0.05, grad_clip=clip, **kw)
-    opt = spec.init(ps.values())
-    for g in grads:
-        for k, p in ps.items():
-            p.grad = torch.tensor(g[k])
-        spec.clip_([p.grad for p in ps.values()])
-        opt.step()
-    for k in p0:
-        np.testing.assert_allclose(ps[k].detach().numpy(),
-                                   np.asarray(params[k]), rtol=0,
-                                   atol=1e-12)
-
-
-def test_optimizer_names():
-    """Names without the JAX package's update in torch.optim raise; the
-    registry takes new names once; the learning rate is set and read."""
-    from tdanet_tpu.system.optimizers import _FACTORIES
-    ported = set(topt._FACTORIES)
-    assert ported | set(topt.NOT_PORTED) == set(_FACTORIES)
-    for name in topt.NOT_PORTED:
-        with pytest.raises(ValueError, match="not ported"):
-            topt.make_optimizer(name)
-    topt.register_optimizer("MySGD", topt._sgd)
-    with pytest.raises(ValueError):
-        topt.register_optimizer("mysgd", topt._sgd)
-    opt = topt.make_optimizer("mysgd", lr=0.1).init(
-        [torch.nn.Parameter(torch.zeros(2))])
-    topt.set_learning_rate(opt, 0.25)
-    assert topt.get_learning_rate(opt) == 0.25
-    topt._CUSTOM.pop("mysgd")
-
+# -- schedulers (the optimizers: tests/test_torch_optimizers.py) ----------
 
 def test_schedulers_match_the_jax_classes():
     """DPTNetScheduler.as_list, and ReduceLROnPlateau's learning rates over
